@@ -1,0 +1,38 @@
+"""Quality metrics (PyTorch port of ``sympgpr_tpu/eval/metrics.py``):
+energy oscillation ``Eosc = std(H)/mean(H)`` per orbit and geometric
+distance of the first mapped point to the reference orbit."""
+
+from __future__ import annotations
+
+import torch
+
+Tensor = torch.Tensor
+
+
+def _nanstd(x: Tensor, dim: int) -> Tensor:
+    """Population std ignoring NaNs (``jnp.nanstd`` with ddof=0)."""
+    m = torch.nanmean(x, dim=dim, keepdim=True)
+    return torch.sqrt(torch.nanmean((x - m) ** 2, dim=dim))
+
+
+def energy_oscillation(H: Tensor, dim: int = 0) -> Tensor:
+    """std(H)/mean(H) along the time axis; NaN (lost) samples ignored."""
+    return _nanstd(H, dim) / torch.nanmean(H, dim=dim)
+
+
+def geometric_distance(q1: Tensor, p1: Tensor, q_ref: Tensor, p_ref: Tensor,
+                       mod_q: float | None = None) -> tuple[Tensor, Tensor]:
+    """Per-orbit MSE of the first mapped point vs the reference orbit.
+
+    ``mod_q`` enables a minimum-image angle difference (off by default,
+    as in the reference).  Returns (gd per orbit, std over orbits).
+    """
+    dq = q1 - q_ref
+    if mod_q is not None:
+        dq = dq - torch.round(dq / mod_q) * mod_q
+    gd = 0.5 * (dq**2 + (p1 - p_ref) ** 2)
+    return gd, torch.std(gd, correction=0)
+
+
+def training_mse(z: Tensor, z_pred: Tensor) -> Tensor:
+    return torch.mean((z - z_pred) ** 2)

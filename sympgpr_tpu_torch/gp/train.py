@@ -1,0 +1,180 @@
+"""Hyperparameter inference (PyTorch port of the L-BFGS part of
+``sympgpr_tpu/gp/train.py``).
+
+scipy L-BFGS-B runs on the host over a torch value-and-grad of the NLL;
+the linear algebra runs on the device the training data lives on.  The
+hyperparameter transforms are the reference's two styles: ``log10``
+(``hyp = 10**theta``) and ``linear`` (``hyp = |theta|``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Sequence
+
+import numpy as np
+import scipy.optimize
+import torch
+
+from sympgpr_tpu_torch.gp import likelihood
+from sympgpr_tpu_torch.gp.model import AuxGP, SympGP
+from sympgpr_tpu_torch.kernels.variants import Kernel
+
+Tensor = torch.Tensor
+
+_BIG = 1e30
+
+
+@dataclasses.dataclass
+class FitResult:
+    theta: np.ndarray
+    fun: float
+    success: bool
+    nfev: int
+    message: str = ""
+
+
+def _apply_transform(theta: Tensor, transform: str) -> Tensor:
+    if transform == "log10":
+        return 10.0 ** theta
+    if transform == "linear":
+        return torch.abs(theta)
+    raise ValueError(f"unknown transform {transform!r}")
+
+
+def make_objective(
+    nll_fn: Callable[..., Tensor],
+    kernel: Kernel,
+    X: Tensor,
+    z: Tensor,
+    sig2n: float,
+    *,
+    transform: str = "log10",
+    fixed_sig: float | None = None,
+) -> Callable[[Tensor], Tensor]:
+    """Objective theta -> NLL.  With ``fixed_sig=None`` the last component
+    of theta is the signal variance."""
+
+    def objective(theta: Tensor) -> Tensor:
+        hyp = _apply_transform(theta, transform)
+        if fixed_sig is None:
+            params, sig = hyp[:-1], hyp[-1]
+        else:
+            params = hyp
+            sig = torch.tensor(fixed_sig, dtype=theta.dtype,
+                               device=theta.device)
+        s2n = torch.tensor(sig2n, dtype=theta.dtype, device=theta.device)
+        return nll_fn(kernel, params, sig, s2n, X, z)
+
+    return objective
+
+
+def value_and_grad(objective: Callable[[Tensor], Tensor], theta: Tensor):
+    """(value, gradient) of a scalar objective at ``theta``."""
+    theta = theta.detach().requires_grad_(True)
+    v = objective(theta)
+    (g,) = torch.autograd.grad(v, theta)
+    return v.detach(), g
+
+
+def minimize_lbfgs(
+    objective: Callable[[Tensor], Tensor],
+    x0: Sequence[float],
+    *,
+    device: torch.device | str,
+    dtype: torch.dtype = torch.float64,
+    bounds=None,
+    tol: float | None = None,
+    maxiter: int = 200,
+) -> FitResult:
+    """scipy L-BFGS-B over a torch value-and-grad of the objective.
+
+    Non-finite values and gradients are mapped to 1e30 and finite numbers
+    exactly as in the JAX package, so the line search backs off.
+    """
+    x0 = np.asarray(x0, dtype=np.float64)
+
+    def fun(x):
+        v, g = value_and_grad(
+            objective, torch.tensor(x, dtype=dtype, device=device))
+        v = float(np.nan_to_num(v.cpu().numpy(), nan=_BIG, posinf=_BIG))
+        g = np.nan_to_num(g.cpu().numpy().astype(np.float64))
+        return v, g
+
+    res = scipy.optimize.minimize(
+        fun, x0, jac=True, method="L-BFGS-B", bounds=bounds, tol=tol,
+        options={"maxiter": maxiter},
+    )
+    return FitResult(theta=np.asarray(res.x), fun=float(res.fun),
+                     success=bool(res.success), nfev=int(res.nfev),
+                     message=str(res.message))
+
+
+def _hyp(res: FitResult, transform: str, fixed_sig, like: Tensor):
+    theta = torch.as_tensor(res.theta, dtype=like.dtype, device=like.device)
+    hyp = _apply_transform(theta, transform)
+    if fixed_sig is None:
+        return hyp[:-1], hyp[-1]
+    return hyp, fixed_sig
+
+
+def _check_optimizer(optimizer: str) -> None:
+    if optimizer != "lbfgs":
+        raise NotImplementedError(
+            f"optimizer {optimizer!r} is not ported yet; use 'lbfgs'")
+
+
+def fit_sympgp(
+    kernel: Kernel,
+    X: Tensor,
+    z: Tensor,
+    *,
+    sig2n: float,
+    x0: Sequence[float],
+    fixed_sig: float | None = None,
+    transform: str = "log10",
+    optimizer: str = "lbfgs",
+    bounds=None,
+    tol: float | None = None,
+    **opt_kwargs,
+) -> tuple[SympGP, FitResult]:
+    """Fit the symplectic GP: optimize hyp, then build alpha/L."""
+    _check_optimizer(optimizer)
+    objective = make_objective(likelihood.nll, kernel, X, z, sig2n,
+                               transform=transform, fixed_sig=fixed_sig)
+    res = minimize_lbfgs(objective, x0, device=X.device, dtype=X.dtype,
+                         bounds=bounds, tol=tol, **opt_kwargs)
+    params, sig = _hyp(res, transform, fixed_sig, X)
+    return SympGP.create(kernel, params, sig, sig2n, X, z), res
+
+
+def fit_auxgp(
+    kernel: Kernel,
+    X: Tensor,
+    z: Tensor,
+    *,
+    sig2n: float,
+    x0: Sequence[float],
+    fixed_sig: float | None = None,
+    transform: str = "log10",
+    optimizer: str = "lbfgs",
+    bounds=None,
+    delta: bool = True,
+    nll_sig2n: float | None = None,
+    **opt_kwargs,
+) -> tuple[AuxGP, FitResult]:
+    """Fit the auxiliary ordinary GP (Newton initial-guess regression).
+
+    ``nll_sig2n`` lets the optimization use another noise level than the
+    final solve (the tokamak workload optimizes at 1e-8, solves at 1e-14).
+    """
+    _check_optimizer(optimizer)
+    objective = make_objective(
+        likelihood.nll_reg, kernel, X, z,
+        sig2n if nll_sig2n is None else nll_sig2n,
+        transform=transform, fixed_sig=fixed_sig,
+    )
+    res = minimize_lbfgs(objective, x0, device=X.device, dtype=X.dtype,
+                         bounds=bounds, **opt_kwargs)
+    params, sig = _hyp(res, transform, fixed_sig, X)
+    return AuxGP.create(kernel, params, sig, sig2n, X, z, delta=delta), res

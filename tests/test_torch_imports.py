@@ -1,0 +1,62 @@
+"""The port imports no JAX: every module of ``sympgpr_tpu_torch`` imports
+with ``jax`` blocked, and the CLI lists its workloads that way."""
+
+import pytest
+
+pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+import os  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+ROOT = Path(__file__).resolve().parent.parent
+BLOCK = ("import sys\n"
+         "for m in ('jax', 'jaxlib', 'flax', 'optax', 'sympgpr_tpu'):\n"
+         "    sys.modules[m] = None\n")
+
+
+def _run(code: str, *args: str) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    return subprocess.run([sys.executable, "-c", BLOCK + code, *args],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_every_module_imports_without_jax():
+    code = (
+        "import importlib, pkgutil\n"
+        "import sympgpr_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__,\n"
+        "                                               pkg.__name__ + '.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "loaded = [m for m in sys.modules if m.split('.')[0] in\n"
+        "          ('jax', 'flax', 'optax', 'sympgpr_tpu', 'triton')\n"
+        "          and sys.modules[m] is not None]\n"
+        "assert not loaded, loaded\n"
+        "print(len(names))\n")
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.strip()) >= 20  # every module was reached
+
+
+def test_cli_without_jax():
+    r = _run("import runpy; sys.argv = ['sympgpr_tpu_torch', 'list'];"
+             "runpy.run_module('sympgpr_tpu_torch', run_name='__main__')")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split() == ["tokamak", "tokamak_kernel"]
+
+
+def test_cli_cuda_device_needs_a_gpu():
+    """``--device cuda`` (the default) fails rather than run elsewhere."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = _run("import runpy\n"
+             "sys.argv = ['sympgpr_tpu_torch', 'run', 'tokamak', '--nm', '2']\n"
+             "runpy.run_module('sympgpr_tpu_torch', run_name='__main__')\n")
+    assert r.returncode != 0
+    assert "no CUDA device" in r.stderr
