@@ -3,6 +3,7 @@
   python -m sympgpr_tpu_torch list
   python -m sympgpr_tpu_torch run tokamak --nm 1000 --device cuda
   python -m sympgpr_tpu_torch run tokamak_kernel --device cuda
+  python -m sympgpr_tpu_torch run tokamak_large --n 4096 --steps 40 --device cuda
 
 ``--device`` defaults to ``cuda`` and fails when no GPU is present; pass
 ``--device cpu`` to run on the CPU.
@@ -17,9 +18,10 @@ import sys
 import numpy as np
 
 WORKLOADS = {
-    # name -> backend of workloads.tokamak.run
+    # name -> backend of workloads.tokamak.run (None: its own run function)
     "tokamak": "generic",
     "tokamak_kernel": "kernel",
+    "tokamak_large": None,
 }
 
 
@@ -47,6 +49,16 @@ def cmd_run(args):
         sys.exit(f"unknown workload {args.workload!r}; "
                  f"available: {sorted(WORKLOADS)}")
     device = _device(args.device)
+    if args.workload == "tokamak_large":
+        from sympgpr_tpu_torch.workloads import tokamak_large
+
+        out = tokamak_large.run(
+            n_train=args.n or 4096, nm=args.nm or 1000,
+            steps=args.steps or 40,
+            **({"sig2n": args.sig2n} if args.sig2n else {}), device=device)
+        out.pop("models")
+        print(json.dumps(out))
+        return
     from sympgpr_tpu_torch.systems import tokamak as tk
     from sympgpr_tpu_torch.systems.tokamak import TokamakConfig
     from sympgpr_tpu_torch.workloads import tokamak
@@ -76,6 +88,13 @@ def main(argv=None):
                        help="number of map applications")
     p_run.add_argument("--optimizer", default=None, choices=("lbfgs",),
                        help="hyperparameter optimizer")
+    p_run.add_argument("--n", type=int, default=None,
+                       help="training-set size (tokamak_large)")
+    p_run.add_argument("--steps", type=int, default=None,
+                       help="optimizer steps (tokamak_large)")
+    p_run.add_argument("--sig2n", type=float, default=None,
+                       help="fit jitter of tokamak_large (escalates x10 if "
+                            "the float32 Cholesky rejects it)")
     p_run.add_argument("--device", default="cuda",
                        help="torch device (default cuda)")
     p_run.add_argument("--with-reference", action="store_true",

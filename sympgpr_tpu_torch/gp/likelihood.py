@@ -6,16 +6,25 @@ fallback at indefinite hyperparameters.  JAX signals a failed Cholesky with
 a NaN factor; ``torch.linalg.cholesky_ex`` signals it through ``info``.  The
 branch is taken in eager code on both signals (``info != 0`` or a
 non-finite factor), and the fallback floors the spectrum so value and
-gradient stay finite.  Gradients come from autograd.
+gradient stay finite.  Gradients come from autograd, except in
+``nll_value_and_grad``, the closed-form gradient of the large-N fit.
+
+Above ``cuda_cov.nll_threshold()`` training points in float32 the
+covariance comes from the hand-written build kernel
+(``ops/cuda_cov.py``), with the contraction kernel as its backward.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from sympgpr_tpu_torch.gp.covariance import build_K_fast, build_Kreg
 from sympgpr_tpu_torch.kernels.variants import Kernel
+from sympgpr_tpu_torch.linalg.triangular import spd_inverse_from_chol
+from sympgpr_tpu_torch.ops import cuda_cov
 
 Tensor = torch.Tensor
 
@@ -44,7 +53,10 @@ def _eye(n: int, like: Tensor) -> Tensor:
 def nll(kernel: Kernel, params: Tensor, sig: Tensor, sig2n: Tensor,
         X: Tensor, z: Tensor) -> Tensor:
     """NLL of the symplectic GP. X: (N, 2) points (q, P); z: (2N,)."""
-    K = build_K_fast(kernel, X, X, params, sig)
+    if cuda_cov.want_cuda_build(kernel, X):
+        K = cuda_cov.build_K_cuda(kernel, X, X, params, sig)
+    else:
+        K = build_K_fast(kernel, X, X, params, sig)
     Ky = K + torch.abs(sig2n) * _eye(K.shape[0], K)
     return _nll_from_Ky(Ky, z)
 
@@ -55,6 +67,59 @@ def nll_reg(kernel: Kernel, params: Tensor, sig: Tensor, sig2n: Tensor,
     K = build_Kreg(kernel, X, X, params, sig)
     Ky = K + torch.abs(sig2n) * _eye(K.shape[0], K)
     return _nll_from_Ky(Ky, z)
+
+
+def nll_value_and_grad(kernel: Kernel, params: Tensor, sig: Tensor,
+                       sig2n: Tensor, X: Tensor, z: Tensor):
+    """(nll, d nll/d params, d nll/d sig) without autograd through the
+    Cholesky factorization: the closed form (Rasmussen & Williams 5.9)
+
+        d nll / d theta = <0.5 (Ky^{-1} - alpha alpha^T), dK / d theta>
+
+    with Ky^{-1} from the blocked triangular inverse and the syrk
+    (``linalg/triangular.py``) on every device, and the contraction by the
+    kernel of ``ops/cuda_cov.py`` where the build took the kernel (else by
+    autograd of ``build_K_fast``).  ``sig2n`` is fixed.
+
+    A failed factorization gives NaN in value and gradient, as in the JAX
+    package: ``cholesky_ex`` reports it through ``info`` and leaves a
+    finite partial factor, so the factor is replaced by NaN on the device
+    (no host sync).
+    """
+    on_kernel = cuda_cov.want_cuda_build(kernel, X)
+    if on_kernel:
+        K = cuda_cov.build_K_blocks(kernel.name, X, X, params, sig)
+    else:
+        params = params.detach().requires_grad_(True)
+        sig = sig.detach().requires_grad_(True)
+        with torch.enable_grad():
+            K_graph = build_K_fast(kernel, X, X, params, sig)
+        K = K_graph.detach()
+    Ky = K + torch.abs(sig2n) * _eye(K.shape[0], K)
+    L, info = torch.linalg.cholesky_ex(Ky)
+    L = torch.where(info == 0, L, math.nan)
+    alpha = torch.cholesky_solve(z[:, None], L)[:, 0]
+    val = 0.5 * z @ alpha + torch.sum(torch.log(torch.diagonal(L)))
+    Kbar = 0.5 * spd_inverse_from_chol(L) - 0.5 * torch.outer(alpha, alpha)
+    if on_kernel:
+        dparams, dsig = cuda_cov.cov_param_grads(kernel.name, X, X, params,
+                                                 sig, Kbar)
+    else:
+        dparams, dsig = torch.autograd.grad(K_graph, (params, sig), Kbar)
+    return val, dparams, dsig
+
+
+def nll_value_and_grad_theta(kernel: Kernel, theta: Tensor, sig2n: Tensor,
+                             X: Tensor, z: Tensor):
+    """(value, grad) of theta -> nll(10**theta), closed-form gradient;
+    theta = log10 (lengthscales..., sig)."""
+    hyp = 10.0 ** theta
+    params, sig = hyp[:-1], hyp[-1]
+    val, dparams, dsig = nll_value_and_grad(kernel, params, sig, sig2n, X,
+                                            z)
+    dtheta = torch.cat([dparams * params,
+                        torch.reshape(dsig * sig, (1,))]) * math.log(10.0)
+    return val, dtheta
 
 
 def chol_and_alpha(Ky: Tensor, z: Tensor,

@@ -74,6 +74,19 @@ class SympGP(_Fitted):
         return cls(kernel=kernel, params=params, sig=sig, sig2n=sig2n, X=X,
                    z=z, alpha=alpha, L=L)
 
+    @classmethod
+    def from_alpha(cls, kernel: Kernel, params, sig, sig2n, X: Tensor, z,
+                   alpha, L: Tensor | None = None) -> "SympGP":
+        """Model from an externally solved alpha (the large-N fit keeps no
+        factor); L defaults to an empty (0, 0) placeholder.  Everything the
+        map needs is present; the posterior variance needs ``create``."""
+        params, sig, sig2n, z, alpha = (
+            _like(v, X) for v in (params, sig, sig2n, z, alpha))
+        if L is None:
+            L = alpha.new_zeros((0, 0))
+        return cls(kernel=kernel, params=params, sig=sig, sig2n=sig2n, X=X,
+                   z=z, alpha=alpha, L=L)
+
     def training_error(self) -> Tensor:
         """MSE(z, K alpha)."""
         K = build_K(self.kernel, self.X, self.X, self.params, self.sig)

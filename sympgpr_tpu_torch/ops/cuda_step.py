@@ -27,6 +27,7 @@ from sympgpr_tpu_torch.gp.model import AuxGP, SympGP
 from sympgpr_tpu_torch.kernels.variants import get_kernel
 from sympgpr_tpu_torch.maps import fast_apply
 from sympgpr_tpu_torch.maps.symplectic import MapConfig
+from sympgpr_tpu_torch.ops import _build
 from sympgpr_tpu_torch.systems.tokamak import compute_r
 
 Tensor = torch.Tensor
@@ -197,10 +198,6 @@ def rollout_reference(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int,
     return traj.q, traj.p
 
 
-def _ptr(t: Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
 def _validate(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int,
               iters: int) -> None:
     """Raise on anything the kernel does not take."""
@@ -233,29 +230,25 @@ def shared_memory_bytes(pm: PackedModels) -> int:
     return (6 * pm.ns + 5 * pm.nas) * pm.uq.element_size()
 
 
+_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+
+
 def _launch(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int, iters: int,
             loss_check: bool):
     global LAUNCHES
-    from sympgpr_tpu_torch.ops import _build
-
     _validate(pm, q0, p0, nm, iters)
     dev, dtype = q0.device, q0.dtype
     B = q0.shape[0]
-    lib = _build.load("rollout_step")
-    fn = (lib.rollout_step_f32 if dtype == torch.float32
-          else lib.rollout_step_f64)
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    sym = "rollout_step_f32" if dtype == torch.float32 else "rollout_step_f64"
+    fn = _build.function("rollout_step", sym, _ARGS)
     Q = torch.empty((nm, B), dtype=dtype, device=dev)
     P = torch.empty((nm, B), dtype=dtype, device=dev)
+    ptr = _build.ptr
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*(_ptr(t) for t in pm.tensors()), _ptr(q0), _ptr(p0),
-                _ptr(Q), _ptr(P), B, pm.ns, pm.nas, nm, iters, pm.kind,
-                pm.aux_kind, int(loss_check), ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"rollout kernel launch failed: cudaError {rc}")
+        rc = fn(*(ptr(t) for t in pm.tensors()), ptr(q0), ptr(p0), ptr(Q),
+                ptr(P), B, pm.ns, pm.nas, nm, iters, pm.kind, pm.aux_kind,
+                int(loss_check), _build.stream(dev))
+    _build.check(rc, "rollout kernel")
     LAUNCHES += 1
     return Q, P
 

@@ -42,11 +42,29 @@ def test_every_module_imports_without_jax():
     assert int(r.stdout.strip()) >= 20  # every module was reached
 
 
+def test_large_n_modules_import_without_jax():
+    """The large-N path's modules by name (the walk above must reach
+    them too): kernels' wrappers, the triangular inverse, the workload."""
+    code = (
+        "import importlib\n"
+        "for n in ('ops.cuda_cov', 'ops.cuda_syrk', 'ops.cuda_trimm',\n"
+        "          'linalg.triangular', 'gp.likelihood', 'gp.train',\n"
+        "          'workloads.tokamak_large'):\n"
+        "    importlib.import_module('sympgpr_tpu_torch.' + n)\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in\n"
+        "            ('jax', 'sympgpr_tpu') and sys.modules[m] is not None]\n"
+        "from sympgpr_tpu_torch.gp import likelihood, train\n"
+        "assert hasattr(likelihood, 'nll_value_and_grad')\n"
+        "assert hasattr(train, 'fit_sympgp_ondevice')\n")
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+
+
 def test_cli_without_jax():
     r = _run("import runpy; sys.argv = ['sympgpr_tpu_torch', 'list'];"
              "runpy.run_module('sympgpr_tpu_torch', run_name='__main__')")
     assert r.returncode == 0, r.stderr
-    assert r.stdout.split() == ["tokamak", "tokamak_kernel"]
+    assert r.stdout.split() == ["tokamak", "tokamak_kernel", "tokamak_large"]
 
 
 def test_cli_cuda_device_needs_a_gpu():
