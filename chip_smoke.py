@@ -94,11 +94,17 @@ def phase_build() -> None:
         list(ex.map(_build.build, LIBRARIES))
     for name in LIBRARIES:
         _build.load(name)
-    ptxas = {}
+    ptxas = {}  # per library: kernel (mangled) -> registers, smem, spills
     for name in LIBRARIES:
         log = _build.library_path(name).with_suffix(".log")
-        ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
-                       if "registers" in ln or "spill" in ln][:24]
+        entries, kernel = {}, None
+        for ln in log.read_text().splitlines():
+            if "Compiling entry function" in ln:
+                kernel = ln.split("'")[1]
+                entries[kernel] = []
+            elif kernel and ("registers" in ln or "spill" in ln):
+                entries[kernel].append(ln.split(": ", 1)[-1].strip())
+        ptxas[name] = {k: "; ".join(v) for k, v in entries.items()}
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
 
 
@@ -385,6 +391,24 @@ def _contraction_check(X, params, sig, Kbar, got) -> dict:
                 ref_norm=float(ref.norm()))
 
 
+def _trimm_check(side, A, B, sign) -> tuple[float, float]:
+    """Max abs error of the trimm kernel against its plain version on the
+    same operands, and that error over max(|A| |B|), the triangular
+    operand taken lower."""
+    from sympgpr_tpu_torch.ops import cuda_trimm
+
+    if side == "right":
+        C = cuda_trimm.matmul_tril_right(A, B, sign=sign)
+        Cp = cuda_trimm.matmul_tril_right_reference(A, B)
+        absA, absB = A.abs(), B.abs().tril()
+    else:
+        C = cuda_trimm.matmul_tril_left(A, B, sign=sign)
+        Cp = cuda_trimm.matmul_tril_left_reference(A, B)
+        absA, absB = A.abs().tril(), B.abs()
+    e = float((C - sign * Cp).abs().max())
+    return e, e / float(torch.matmul(absA, absB).max())
+
+
 def phase_large_kernels_vs_plain(dev, sgp):
     """The four kernels of the fit step against their plain versions at
     the main path's shapes (N=4096 float32: K and Kbar 8192 x 8192), and
@@ -415,38 +439,48 @@ def phase_large_kernels_vs_plain(dev, sgp):
     assert int(info) == 0, "Cholesky failed at the trained hyperparameters"
     alpha = torch.cholesky_solve(z[:, None], L)[:, 0]
 
-    calls = []  # every trimm product of one tri_inv_blocked, recorded
+    # every trimm product of one tri_inv_blocked, recorded: the strided
+    # views of W and L it passes, and its sign
+    calls = []
     right, left = cuda_trimm.matmul_tril_right, cuda_trimm.matmul_tril_left
-    cuda_trimm.matmul_tril_right = \
-        lambda A, B: calls.append(("right", A, B)) or right(A, B)
-    cuda_trimm.matmul_tril_left = \
-        lambda A, B: calls.append(("left", A, B)) or left(A, B)
+    cuda_trimm.matmul_tril_right = lambda A, B, out=None, sign=1: \
+        calls.append(("right", A, B, sign)) or right(A, B, out, sign)
+    cuda_trimm.matmul_tril_left = lambda A, B, out=None, sign=1: \
+        calls.append(("left", A, B, sign)) or left(A, B, out, sign)
     try:
         W = triangular.tri_inv_blocked(L).contiguous()
     finally:
         cuda_trimm.matmul_tril_right, cuda_trimm.matmul_tril_left = \
             right, left
     trimm_err, trimm_rel, trimm_ms, trimm_plain_ms, levels = 0.0, 0.0, 0, 0, []
-    for side, A, B in calls:
+    for side, A, B, sign in calls:
+        e, rel = _trimm_check(side, A, B, sign)
+        trimm_err, trimm_rel = max(trimm_err, e), max(trimm_rel, rel)
         fn = right if side == "right" else left
         ref_fn = (cuda_trimm.matmul_tril_right_reference if side == "right"
                   else cuda_trimm.matmul_tril_left_reference)
-        C, Cp = fn(A, B), ref_fn(A, B)
-        absA, absB = (A.abs(), B.abs().tril()) if side == "right" \
-            else (A.abs().tril(), B.abs())
-        bound = float(torch.matmul(absA, absB).max())
-        e = float((C - Cp).abs().max())
-        trimm_err, trimm_rel = max(trimm_err, e), max(trimm_rel, e / bound)
-        ms = _time(lambda: fn(A, B))
+        ms = _time(lambda: fn(A, B, sign=sign))
         pms = _time(lambda: ref_fn(A, B))
         trimm_ms += ms
         trimm_plain_ms += pms
-        levels.append(dict(side=side, shape=list(A.shape), ms=ms,
-                           plain_ms=pms))
+        nb, s, _ = A.shape
+        levels.append(dict(
+            side=side, shape=list(A.shape), ms=ms, plain_ms=pms,
+            tflops=nb * s * s * (s + 1) / (ms * 1e9),  # triangular MACs x 2
+            plain_tflops=2 * nb * s ** 3 / (pms * 1e9)))  # dense flops
     res["trimm_levels"] = levels
     res["trimm_rel_err"] = trimm_rel
     kernels["trimm"] = dict(max_abs_err=trimm_err, ms=trimm_ms,
                             plain_ms=trimm_plain_ms)
+    # a ragged float32 case: s = 300 is no multiple of the 128-wide tile
+    g = torch.Generator().manual_seed(1)
+    A300 = torch.randn(3, 300, 300, generator=g).to(dev)
+    L300 = torch.randn(3, 300, 300, generator=g).tril().to(dev)
+    L300 += torch.triu(torch.full_like(L300, math.nan), 1)  # never read
+    res["trimm_ragged_300_rel_err"] = {
+        side: _trimm_check(side, A300, L300, 1)[1] if side == "right"
+        else _trimm_check(side, L300, A300, 1)[1]
+        for side in ("right", "left")}
 
     S = cuda_syrk.syrk_lower(W)
     S64 = cuda_syrk.syrk_lower_reference(W.double())
@@ -522,6 +556,8 @@ def phase_large_kernels_vs_plain(dev, sgp):
         contraction
     assert res["syrk_rel_err"] <= RTOL_SYRK_F32, res
     assert trimm_rel <= RTOL_TRIMM_F32, res
+    assert max(res["trimm_ragged_300_rel_err"].values()) <= RTOL_TRIMM_F32, \
+        res["trimm_ragged_300_rel_err"]
     assert len(levels) == 2 * 4, levels  # levels s = 512 ... 4096
     assert max(f64.values()) <= RTOL_F64, f64
     return kernels

@@ -4,12 +4,13 @@
 The closed-form NLL gradient needs ``Kbar = 0.5 (Ky^{-1} - alpha alpha^T)``
 (Rasmussen & Williams 5.9).  Ky^{-1} is assembled from matrix products:
 
-* ``tri_inv_blocked``: W = L^{-1} by batched recursive doubling.  All
-  ``BASE``-sized diagonal blocks are inverted in one batched
-  ``torch.linalg.solve_triangular``; then pairs are combined level by level
-  with ``Wb = -Wc (B Wa)``, two batched products with a lower-triangular
-  operand, through ``ops.cuda_trimm`` (on a CUDA tensor that is the
-  kernel, on a CPU tensor its plain version);
+* ``tri_inv_blocked``: W = L^{-1} by batched recursive doubling in one
+  (m, m) buffer.  All ``BASE``-sized diagonal blocks are inverted in one
+  batched ``torch.linalg.solve_triangular``; then pairs are combined level
+  by level with ``Wb = -Wc (B Wa)``, two batched products with a
+  lower-triangular operand on strided views of W and L, through
+  ``ops.cuda_trimm`` (on a CUDA tensor that is the kernel, on a CPU tensor
+  its plain version);
 * ``spd_inverse_from_chol``: Ky^{-1} = W^T W through ``ops.cuda_syrk``.
 """
 
@@ -37,38 +38,47 @@ def _pad_tri(L: Tensor, m: int) -> Tensor:
     return Lp
 
 
+def _blocks(X: Tensor, count: int, size: int, step: int, row: int = 0,
+            col: int = 0) -> Tensor:
+    """``count`` (size, size) blocks of the contiguous square X as one
+    strided view: block p starts at (row + p step, col + p step)."""
+    m = X.shape[0]
+    return X.as_strided((count, size, size), (step * (m + 1), m, 1),
+                        X.storage_offset() + row * m + col)
+
+
 def tri_inv_blocked(L: Tensor) -> Tensor:
     """W = L^{-1} for lower-triangular L by batched recursive doubling.
 
     Sizes are identity-padded to ``BASE * 2**k`` and the result is sliced
-    back.  W is exactly zero above its diagonal.
+    back.  W is one (m, m) buffer, exactly zero above its diagonal: each
+    level reads its diagonal blocks Wa, Wc and L's subdiagonal blocks B as
+    strided views, and the second product writes -Wc (B Wa) straight into
+    W's subdiagonal blocks.
     """
     n_in = L.shape[0]
     base = min(BASE, max(8, 1 << (n_in - 1).bit_length()))
     m = base
     while m < n_in:
         m *= 2
-    L = _pad_tri(L, m)
+    L = _pad_tri(L, m).contiguous()
     nb = m // base
 
-    diag = torch.stack([L[i * base:(i + 1) * base, i * base:(i + 1) * base]
-                        for i in range(nb)])
+    W = torch.zeros_like(L)
     eye = torch.eye(base, dtype=L.dtype, device=L.device).expand(nb, -1, -1)
-    W = torch.linalg.solve_triangular(diag, eye, upper=False)  # (nb, b, b)
+    _blocks(W, nb, base, base).copy_(torch.linalg.solve_triangular(
+        _blocks(L, nb, base, base), eye, upper=False))
 
     s = base
     while s < m:
-        npair = m // (2 * s)
-        Wa = W[0::2].contiguous()  # (npair, s, s)
-        Wc = W[1::2].contiguous()
-        B = torch.stack([L[2 * p * s + s:2 * (p + 1) * s,
-                           2 * p * s:2 * p * s + s] for p in range(npair)])
-        Wb = -cuda_trimm.matmul_tril_left(
-            Wc, cuda_trimm.matmul_tril_right(B, Wa))
-        zero = torch.zeros_like(Wa)
-        W = torch.cat([torch.cat([Wa, zero], 2), torch.cat([Wb, Wc], 2)], 1)
+        npair, step = m // (2 * s), 2 * s
+        BWa = cuda_trimm.matmul_tril_right(_blocks(L, npair, s, step, s, 0),
+                                           _blocks(W, npair, s, step))
+        cuda_trimm.matmul_tril_left(_blocks(W, npair, s, step, s, s), BWa,
+                                    out=_blocks(W, npair, s, step, s, 0),
+                                    sign=-1)
         s *= 2
-    return W[0, :n_in, :n_in]
+    return W[:n_in, :n_in]
 
 
 def spd_inverse_from_chol(L: Tensor) -> Tensor:

@@ -4,8 +4,9 @@ Each library is one ``.cu`` file of ``sympgpr_tpu_torch/csrc`` with a plain
 C interface, compiled by ``nvcc`` into a shared library and loaded with
 ``ctypes``.  The build runs on first use, into ``sympgpr_tpu_torch/_build/``
 (ignored by git), from the package's own sources only; the library's file
-name carries a hash of its source and flags, so an edited source is
-rebuilt.  A failed build raises with nvcc's output.
+name carries a hash of its source, the headers beside it and the flags, so
+an edited source or header is rebuilt.  A failed build raises with nvcc's
+output.
 """
 
 from __future__ import annotations
@@ -44,8 +45,12 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    """Where the library of ``csrc/<name>.cu`` goes: its name carries a
+    hash of the source, of every header under ``csrc/`` (any of which the
+    source may include) and of the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

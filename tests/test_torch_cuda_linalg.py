@@ -92,26 +92,53 @@ def test_contraction_matches_plain(cuda, name, dtype):
     assert _rel(got, ref) <= RTOL[dt]
 
 
-@pytest.mark.parametrize("s", [192, 200])  # 200: a ragged edge
+def _view(t, pad):
+    """t as a view with row stride s + pad, starting pad elements into a
+    NaN-filled buffer; returns the view and the buffer."""
+    nb, s, _ = t.shape
+    buf = torch.full((nb * s * (s + pad) + pad,), float("nan"),
+                     dtype=t.dtype, device=t.device)
+    v = buf.as_strided(t.shape, (s * (s + pad), s + pad, 1), pad)
+    return v.copy_(t), buf
+
+
+# s below, at and across the tile (128 float32, 64 float64) and off the
+# 16-byte vector (63, 513); "view4" / "view1": operands and output are
+# views with row stride s + 4 / s + 1 at element offset 4 / 1 (16-byte
+# aligned rows when s % 4 == 0 / never) inside NaN-filled buffers, sign -1
+@pytest.mark.parametrize("layout", ["contiguous", "view4", "view1"])
+@pytest.mark.parametrize("nb", [1, 3])
+@pytest.mark.parametrize("s", [1, 63, 100, 128, 200, 300, 513])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("right", [True, False])
-def test_trimm_matches_plain(cuda, right, dtype, s):
+def test_trimm_matches_plain(cuda, right, dtype, s, nb, layout):
     dt = DTYPES[dtype]
     rng = np.random.default_rng(4)
-    A = torch.tensor(rng.standard_normal((3, s, s)), dtype=dt, device=cuda)
-    L = torch.tensor(np.tril(rng.standard_normal((3, s, s))), dtype=dt,
+    A = torch.tensor(rng.standard_normal((nb, s, s)), dtype=dt, device=cuda)
+    L = torch.tensor(np.tril(rng.standard_normal((nb, s, s))), dtype=dt,
                      device=cuda)
     poisoned = L + torch.triu(torch.full_like(L, float("nan")), 1)
+    ref = (cuda_trimm.matmul_tril_right_reference(A, L) if right
+           else cuda_trimm.matmul_tril_left_reference(L, A))
+    out, buf, sign = None, None, 1
+    if layout != "contiguous":
+        pad = 4 if layout == "view4" else 1
+        out, buf = _view(torch.zeros_like(A), pad)
+        (A, _), (poisoned, _) = _view(A, pad), _view(poisoned, pad)
+        sign = -1
     before = cuda_trimm.LAUNCHES
     if right:
-        C = cuda_trimm.matmul_tril_right(A, poisoned)
-        ref = cuda_trimm.matmul_tril_right_reference(A, L)
+        C = cuda_trimm.matmul_tril_right(A, poisoned, out=out, sign=sign)
     else:
-        C = cuda_trimm.matmul_tril_left(poisoned, A)
-        ref = cuda_trimm.matmul_tril_left_reference(L, A)
+        C = cuda_trimm.matmul_tril_left(poisoned, A, out=out, sign=sign)
     torch.cuda.synchronize()
     assert cuda_trimm.LAUNCHES == before + 1
-    assert _rel(C, ref) <= RTOL[dt]
+    assert _rel(C, sign * ref) <= RTOL[dt]
+    if out is not None:  # written into the view and nowhere else
+        assert C is out
+        inside = torch.zeros(buf.shape, dtype=torch.bool, device=cuda)
+        inside.as_strided(out.shape, out.stride(), pad).fill_(True)
+        assert torch.isnan(buf[~inside]).all()
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))

@@ -80,6 +80,51 @@ def test_trimm_ignores_upper_garbage(right):
     np.testing.assert_allclose(npy(got), dense, atol=1e-10)
 
 
+def _view(t, pad):
+    """t as a view with row stride s + pad, starting pad elements into a
+    NaN-filled buffer; returns the view and the buffer."""
+    nb, s, _ = t.shape
+    buf = torch.full((nb * s * (s + pad) + pad,), float("nan"),
+                     dtype=t.dtype)
+    v = buf.as_strided(t.shape, (s * (s + pad), s + pad, 1), pad)
+    return v.copy_(t), buf
+
+
+@pytest.mark.parametrize("right", [True, False])
+def test_trimm_views_out_and_sign(right):
+    """Operands and output as strided views inside NaN-filled buffers, and
+    sign -1, as the one-buffer inverse passes them: the result is minus
+    the JAX product, written into the output view and nowhere else."""
+    rng = np.random.default_rng(6)
+    nb, s = 3, 128
+    A = rng.standard_normal((nb, s, s))
+    Lt = np.tril(rng.standard_normal((nb, s, s)))
+    a, _ = _view(tt(A), 3)
+    lt, _ = _view(tt(Lt + np.triu(np.full((s, s), np.nan), 1)), 5)
+    out, buf = _view(torch.zeros((nb, s, s), dtype=torch.float64), 1)
+    if right:
+        got = cuda_trimm.matmul_tril_right(a, lt, out=out, sign=-1)
+        ref = jright(jnp.asarray(A), jnp.asarray(Lt), tile=128,
+                     precision="highest")
+    else:
+        got = cuda_trimm.matmul_tril_left(lt, a, out=out, sign=-1)
+        ref = jleft(jnp.asarray(Lt), jnp.asarray(A), tile=128,
+                    precision="highest")
+    assert got is out
+    np.testing.assert_allclose(npy(got), -np.asarray(ref), atol=1e-10)
+    inside = torch.zeros(buf.shape, dtype=torch.bool)
+    inside.as_strided(out.shape, out.stride(), 1).fill_(True)
+    assert torch.isnan(buf[~inside]).all()
+
+
+def test_trimm_rejects_bad_sign_and_out():
+    A = torch.zeros((1, 8, 8), dtype=torch.float64)
+    with pytest.raises(ValueError, match="sign"):
+        cuda_trimm.matmul_tril_right(A, A, sign=2)
+    with pytest.raises(ValueError, match="out"):
+        cuda_trimm.matmul_tril_left(A, A, out=torch.zeros((1, 8, 9)))
+
+
 def test_trimm_rejects_ragged_sizes():
     """Operands of unequal or non-square shapes are refused; a size that
     is no multiple of the kernel's tile is a valid size (the kernel masks
@@ -124,6 +169,46 @@ def test_tri_inv_blocked_trimm_path(n, monkeypatch):
     L = _tril_case(n, n)
     W = npy(tri_inv_blocked(tt(L)))
     assert len(calls) == (1 if n == 256 else 3)  # levels 128 (256 512)
+    np.testing.assert_allclose(W @ L, np.eye(n), atol=1e-10)
+    W_j = np.asarray(jtri.tri_inv_blocked(
+        jnp.asarray(L), base=128, precision="highest", trimm=True,
+        trimm_tile=128))
+    np.testing.assert_allclose(W, W_j, atol=1e-10)
+
+
+@pytest.mark.parametrize("n", [515, 1100])
+def test_tri_inv_blocked_one_buffer(n, monkeypatch):
+    """Base 128 (levels 128 up to m / 2 of the padded size m = 1024 or
+    2048): each level's products get strided views, B of the padded L, Wa
+    and Wc of the result's own buffer, and the second writes -Wc (B Wa)
+    straight into that buffer (sign -1).  Held against JAX with its Pallas
+    trimm (interpret) at 1e-10."""
+    monkeypatch.setattr(triangular, "BASE", 128)
+    calls = []
+    for name in ("matmul_tril_right", "matmul_tril_left"):
+        def record(*args, fn=getattr(cuda_trimm, name), name=name, **kw):
+            calls.append((name, args, kw))
+            return fn(*args, **kw)
+        monkeypatch.setattr(cuda_trimm, name, record)
+    L = _tril_case(n, n)
+    W = tri_inv_blocked(tt(L))
+    m = 1 << (n - 1).bit_length()
+    buf = W.untyped_storage().data_ptr()
+    levels = (m // 128).bit_length() - 1  # s = 128, 256, ..., m / 2
+    assert [c[0] for c in calls] == ["matmul_tril_right",
+                                     "matmul_tril_left"] * levels
+    for name, args, kw in calls:
+        if name == "matmul_tril_right":
+            B, Wa = args
+            assert B.stride()[1:] == (m, 1) and Wa.stride()[1:] == (m, 1)
+            assert Wa.untyped_storage().data_ptr() == buf
+        else:
+            Wc, _ = args
+            assert kw["sign"] == -1
+            for view in (Wc, kw["out"]):
+                assert view.untyped_storage().data_ptr() == buf
+    W = npy(W)
+    assert np.all(np.triu(W, 1) == 0.0)
     np.testing.assert_allclose(W @ L, np.eye(n), atol=1e-10)
     W_j = np.asarray(jtri.tri_inv_blocked(
         jnp.asarray(L), base=128, precision="highest", trimm=True,
