@@ -12,7 +12,14 @@ per source, all at once) and drives two main paths on the card:
   matmul, syrk and rollout kernels.
 
 Each kernel is held against its plain PyTorch version at the main path's
-shapes, and both are timed with CUDA events.
+shapes, and both are timed with CUDA events, beside the least time the
+card could take for the same work (bytes over HBM rate, or operations over
+the rate of their unit) and, where one PyTorch call computes the same
+function, that call's time.  The rollout kernel is also timed at the four
+float32 shapes of the main paths (``rollout_shapes``: the bench batch
+32768 x 1000 and the reference 30 x 1000 at N=80, ``tokamak_large``'s
+30 x 1000 apply and 4096 x 256 batch at N=4096) and held against its plain
+version in float64 at N=4096.
 
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
@@ -57,6 +64,56 @@ ATOL_F64 = 1e-9  # every step of 100, float64: ~1e-15 per step on regular orbits
 ATOL_F32 = 1e-4
 EOSC_RTOL_F32 = 0.1  # mean Eosc over 1000 steps, float32 (decoherent orbits)
 LOST_SLACK_F32 = 1
+# float32 at N=4096: a 4096-point sum carries float32 rounding above
+# ATOL_F32 (kernel vs plain version 8.9e-4 at steps 1-2 on an H100).  So
+# both float32 versions are held against the float64 rollout of the same
+# float32 columns: the kernel's L2 error at steps 1-2 within 3x the plain
+# version's, as the contraction check below (H100: kernel 1.6e-3, plain
+# 2.0e-3).  A rollout without one lane's points lies at 22; the phase
+# checks that the bound rejects it.
+ROLLOUT_NOISE_FACTOR = 3
+
+# Peaks of one H100 SXM at 700 W (NVIDIA's data sheet): the least time a
+# kernel could take is the larger of its bytes over the memory rate and its
+# operations over the rate of their unit.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12    # outside the tensor cores
+FP64_FLOP_PER_S = 34e12    # outside the tensor cores
+SFU_EXP_PER_S = 132 * 16 * 1.98e9  # 16 transcendentals per clock per SM
+
+# FP32 operations (an FMA counts 2) per pair in the rollout kernel's
+# formulas; the exps are counted apart, on the SFUs
+FLOP_SETUP = 21   # sin/cos of h(u - q), s, s', s'', c0..c3
+FLOP_NEWTON = 15  # per Newton iteration
+FLOP_Q = 11       # q update
+FLOP_AUX = 11     # per aux point
+FLOP_ORBIT = 250  # per orbit and step: the Newton updates, the loss solve
+
+
+def bound(nbytes: float, flops: float, fp64: bool = False,
+          exps: float = 0.0) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations") for the work."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(flops / (FP64_FLOP_PER_S if fp64 else FP32_FLOP_PER_S),
+                exps / SFU_EXP_PER_S)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def rollout_bound(B: int, nm: int, ns: int, nas: int, elt: int,
+                  iters: int = 5) -> dict:
+    """The rollout's work for B orbits over nm steps: each column read
+    once, Q and P written once; per orbit-step (1 + iters) exps per
+    training point (A B = exp(-(s + dP^2 / 2 ly^2)) once per Newton
+    iteration and once for the q update) and one per aux point."""
+    steps = (nm - 1) * B
+    exps = steps * ((1 + iters) * ns + nas)
+    flops = steps * (ns * (FLOP_SETUP + iters * FLOP_NEWTON + FLOP_Q)
+                     + nas * FLOP_AUX + FLOP_ORBIT)
+    nbytes = elt * ((4 * ns + 3 * nas) + 2 * B + 2 * nm * B)
+    ms, by = bound(nbytes, flops, elt == 8, 0.0 if elt == 8 else exps)
+    return dict(bound_ms=ms, bound_by=by, exps=exps, flops=flops,
+                bytes=nbytes)
 
 
 def emit(phase: str, **kw) -> None:
@@ -337,7 +394,8 @@ def phase_large_main(dev):
     sync()
     wall = time.perf_counter() - t0
     launches = _large_counts()
-    sgp, aux = out.pop("models")
+    models = out.pop("models")
+    sgp = models[0]
     hist = np.asarray(out.pop("hist"))
     fit_ms = 1e3 * (out["fit_s"] - out["fit_escalation_s"]) / LARGE["steps"]
     res = dict(out, wall_s=wall, fit_ms_per_step=fit_ms, launches=launches,
@@ -352,7 +410,109 @@ def phase_large_main(dev):
     for k in ("gd", "mean_Eosc", "train_mse"):
         assert out[k] <= GATES_LARGE[k], (k, out[k])
     assert out["n_lost"] <= GATES_LARGE["n_lost"], out["n_lost"]
-    return sgp, launches
+    return models, launches
+
+
+# the rollout at the main paths' float32 shapes: (orbits, steps, model)
+ROLLOUT_SHAPES = {
+    "bench_32768x1000_n80": (BENCH_ORBITS, NM, "n80"),
+    "ref_30x1000_n80": (30, NM, "n80"),
+    "large_apply_30x1000_n4096": (30, LARGE["nm"], "n4096"),
+    "large_batch_4096x256_n4096": (LARGE["rollout_batch"], 256, "n4096"),
+}
+F64_LARGE_STEPS = 5
+
+
+def _rollout_noise_check(pm, q0, p0, sm_count) -> dict:
+    """The float32 kernel and plain version at steps 1-2 against the
+    float64 rollout of the same float32 columns: L2 errors over (Q, P)
+    and their max; the plain version without the points of the kernel's
+    last lane (n = team - 1 mod team) beside them."""
+    import dataclasses
+
+    from sympgpr_tpu_torch.ops import cuda_step as cs
+
+    Qk, Pk = cs.rollout_in_kernel(pm, q0, p0, 3, loss_check=True)
+    sync()
+    Qr, Pr = cs.rollout_reference(pm, q0, p0, 3, loss_check=True)
+    exact = dataclasses.replace(
+        pm, **{f: getattr(pm, f).double() for f in (
+            "uq", "uP", "a0", "a1", "auxq", "auxp", "auxa", "scal")})
+    Qx, Px = cs.rollout_reference(exact, q0.double(), p0.double(), 3,
+                                  loss_check=True)
+    geo = cs.launch_geometry(q0.shape[0], pm.ns, pm.nas, q0.dtype, sm_count)
+    dropped = dataclasses.replace(pm, a0=pm.a0.clone(), a1=pm.a1.clone())
+    dropped.a0[geo.team - 1::geo.team] = 0
+    dropped.a1[geo.team - 1::geo.team] = 0
+    Qd, Pd = cs.rollout_reference(dropped, q0, p0, 3, loss_check=True)
+
+    def err(Q, P) -> float:
+        d = torch.cat([Q[1:3].double() - Qx[1:3], P[1:3].double() - Px[1:3]])
+        return float(d[~torch.isnan(d)].norm())
+
+    plain = err(Qr, Pr)
+    return dict(ns=pm.ns, steps=2, geometry=geo.__dict__, err=err(Qk, Pk),
+                plain_err=plain, bound=ROLLOUT_NOISE_FACTOR * plain,
+                lane_dropped_err=err(Qd, Pd),
+                max_abs_err=max(_max_diff(Qk[1:3], Qr[1:3]),
+                                _max_diff(Pk[1:3], Pr[1:3])),
+                nan_pattern_equal=bool(torch.equal(torch.isnan(Pk),
+                                                   torch.isnan(Pr))))
+
+
+def phase_rollout_shapes(dev, pm32, large_models):
+    """The rollout kernel at the four float32 shapes of the main paths:
+    its geometry, time, rate and bound; float32 at N=4096 (lanes of 16
+    points) against the float64 rollout at steps 1-2 beside the plain
+    version, and float64 at N=4096 against the plain version over a few
+    steps."""
+    from sympgpr_tpu_torch.ops import cuda_step as cs
+
+    sgp, aux = large_models
+    pms = {"n80": pm32, "n4096": cs.pack_models(sgp, aux, mod_q=2 * math.pi)}
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    shapes = {}
+    for name, (batch, nm, model) in ROLLOUT_SHAPES.items():
+        pm = pms[model]
+        q0, p0 = _ics(dev, torch.float32, -(-batch // 30))
+        q0, p0 = q0[:batch].contiguous(), p0[:batch].contiguous()
+        ms = _time(lambda: cs.rollout_in_kernel(pm, q0, p0, nm,
+                                                loss_check=True))
+        b = rollout_bound(batch, nm, pm.ns, pm.nas, 4)
+        shapes[name] = dict(
+            orbits=batch, nm=nm, ns=pm.ns, nas=pm.nas, ms=ms,
+            orbit_steps_per_s=(nm - 1) * batch / (ms * 1e-3),
+            geometry=cs.launch_geometry(batch, pm.ns, pm.nas, torch.float32,
+                                        sm_count).__dict__,
+            bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+            bound_share=b["bound_ms"] / ms,
+            sfu_ms=1e3 * b["exps"] / SFU_EXP_PER_S,
+            fp32_ms=1e3 * b["flops"] / FP32_FLOP_PER_S)
+
+    # float32 at the large-N apply's shape: the kernel's 16-point instance
+    q0, p0 = _ics(dev, torch.float32)
+    f32 = _rollout_noise_check(pms["n4096"], q0, p0, sm_count)
+
+    pm64 = cs.pack_models(sgp, aux, mod_q=2 * math.pi, dtype=torch.float64)
+    q0, p0 = _ics(dev, torch.float64)
+    Qk, Pk = cs.rollout_in_kernel(pm64, q0, p0, F64_LARGE_STEPS,
+                                  loss_check=True)
+    sync()
+    Qr, Pr = cs.rollout_reference(pm64, q0, p0, F64_LARGE_STEPS,
+                                  loss_check=True)
+    f64 = dict(ns=pm64.ns, steps=F64_LARGE_STEPS,
+               max_abs_err=max(_max_diff(Qk, Qr), _max_diff(Pk, Pr)),
+               nan_pattern_equal=bool(torch.equal(torch.isnan(Pk),
+                                                  torch.isnan(Pr))),
+               lost=int(torch.isnan(Pk[-1]).sum()),
+               ms=_time(lambda: cs.rollout_in_kernel(
+                   pm64, q0, p0, F64_LARGE_STEPS, loss_check=True)))
+    emit("rollout_shapes", shapes=shapes, f32_n4096=f32, f64_n4096=f64)
+    assert f32["nan_pattern_equal"] and f32["err"] <= f32["bound"], f32
+    # the bound would fail a kernel that left out one lane's points
+    assert f32["lane_dropped_err"] > f32["bound"], f32
+    assert f64["nan_pattern_equal"] and f64["max_abs_err"] <= ATOL_F64, f64
+    assert f64["lost"] < 30, f64
 
 
 def _rel_to_max(a, b) -> float:
@@ -427,6 +587,9 @@ def phase_large_kernels_vs_plain(dev, sgp):
     res["build_rel_err"] = _rel_to_max(K, Kp)
     kernels["cov_fwd"] = dict(
         max_abs_err=float((K - Kp).abs().max()),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(K.numel() * K.element_size(), 0.0))),
+        library_ms=None,
         ms=_time(lambda: cuda_cov.build_K_blocks("per_se", X, X, params,
                                                  sig)),
         plain_ms=_time(lambda: cuda_cov.build_K_blocks_reference(
@@ -453,6 +616,7 @@ def phase_large_kernels_vs_plain(dev, sgp):
         cuda_trimm.matmul_tril_right, cuda_trimm.matmul_tril_left = \
             right, left
     trimm_err, trimm_rel, trimm_ms, trimm_plain_ms, levels = 0.0, 0.0, 0, 0, []
+    trimm_lib_ms, trimm_flops, trimm_bytes = 0.0, 0.0, 0.0
     for side, A, B, sign in calls:
         e, rel = _trimm_check(side, A, B, sign)
         trimm_err, trimm_rel = max(trimm_err, e), max(trimm_rel, rel)
@@ -461,17 +625,24 @@ def phase_large_kernels_vs_plain(dev, sgp):
                   else cuda_trimm.matmul_tril_left_reference)
         ms = _time(lambda: fn(A, B, sign=sign))
         pms = _time(lambda: ref_fn(A, B))
+        lms = _time(lambda: torch.matmul(A, B))  # dense, one cuBLAS call
         trimm_ms += ms
         trimm_plain_ms += pms
+        trimm_lib_ms += lms
         nb, s, _ = A.shape
+        trimm_flops += nb * s * s * (s + 1)  # triangular MACs x 2
+        trimm_bytes += 3 * nb * s * s * A.element_size()
         levels.append(dict(
             side=side, shape=list(A.shape), ms=ms, plain_ms=pms,
+            library_ms=lms,
             tflops=nb * s * s * (s + 1) / (ms * 1e9),  # triangular MACs x 2
             plain_tflops=2 * nb * s ** 3 / (pms * 1e9)))  # dense flops
     res["trimm_levels"] = levels
     res["trimm_rel_err"] = trimm_rel
     kernels["trimm"] = dict(max_abs_err=trimm_err, ms=trimm_ms,
-                            plain_ms=trimm_plain_ms)
+                            plain_ms=trimm_plain_ms, library_ms=trimm_lib_ms,
+                            **dict(zip(("bound_ms", "bound_by"),
+                                       bound(trimm_bytes, trimm_flops))))
     # a ragged float32 case: s = 300 is no multiple of the 128-wide tile
     g = torch.Generator().manual_seed(1)
     A300 = torch.randn(3, 300, 300, generator=g).to(dev)
@@ -487,10 +658,15 @@ def phase_large_kernels_vs_plain(dev, sgp):
     res["syrk_rel_err"] = _rel_to_max(S, S64)
     res["syrk_plain_f32_rel_err"] = _rel_to_max(
         cuda_syrk.syrk_lower_reference(W), S64)
+    m = W.shape[0]
     kernels["syrk"] = dict(
         max_abs_err=float((S.double() - S64).abs().max()),
         ms=_time(lambda: cuda_syrk.syrk_lower(W)),
-        plain_ms=_time(lambda: cuda_syrk.syrk_lower_reference(W)))
+        plain_ms=_time(lambda: cuda_syrk.syrk_lower_reference(W)),
+        library_ms=_time(lambda: torch.matmul(W.T, W)),
+        # the lower triangle of W^T W over a triangular W: m^3 / 6 MACs
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(2 * W.numel() * W.element_size(), m ** 3 / 3))))
     del S64
 
     Kbar = 0.5 * S - 0.5 * torch.outer(alpha, alpha)
@@ -500,6 +676,9 @@ def phase_large_kernels_vs_plain(dev, sgp):
     res["contraction"] = contraction
     kernels["cov_bwd"] = dict(
         max_abs_err=contraction["max_abs_err"],
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(Kbar.numel() * Kbar.element_size(), 0.0))),
+        library_ms=None,
         ms=_time(lambda: cuda_cov.cov_param_grads("per_se", X, X, params,
                                                   sig, Kbar)),
         plain_ms=_time(lambda: cuda_cov.cov_param_grads_reference(
@@ -601,13 +780,17 @@ def main() -> None:
     phase_main_generic(dev)
     pm32, err32, ms, plain_ms = phase_kernel_vs_plain(dev, out["models"])
     phase_throughput(dev, pm32)
-    sgp, large_launches = phase_large_main(dev)
-    large = phase_large_kernels_vs_plain(dev, sgp)
-    del sgp
+    large_models, large_launches = phase_large_main(dev)
+    large = phase_large_kernels_vs_plain(dev, large_models[0])
+    phase_rollout_shapes(dev, pm32, large_models)
+    del large_models
     phase_escalation(dev)
+    b = rollout_bound(30, NM, pm32.ns, pm32.nas, 4)
     rows = [{"name": "rollout_step", "route": "cuda", "source": KERNEL_SOURCE,
              "replaces": REPLACES, "launches": launches,
-             "max_abs_err": err32, "ms": ms, "plain_ms": plain_ms}]
+             "max_abs_err": err32, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+             "library_ms": None}]
     for name, (source, replaces) in LARGE_SOURCES.items():
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces,

@@ -13,6 +13,10 @@ Split cycling) raise ``NotImplementedError``; nothing falls back.
 go to the plain PyTorch version ``rollout_reference`` (the fast path of
 ``maps/fast_apply.py`` with fixed Newton iterations), CUDA tensors launch
 the kernel or raise.  ``LAUNCHES`` counts kernel launches.
+
+The kernel runs one orbit on a team of lanes; ``launch_geometry`` picks
+the team size, the block and the kernel's instance for a batch and
+training-set size, and the kernel takes that layout as given.
 """
 
 from __future__ import annotations
@@ -38,6 +42,135 @@ _KIND = {"per_se": 0, "se_se": 1, "per_se_freq": 2, "sum_per_se": 3}
 _KIND_NAME = {v: k for k, v in _KIND.items()}
 NSCAL = 12  # lx, ly, alx, aly, delta, mod_q, freq, afreq, mod_p, 3x pad
 SMEM_LIMIT = 232448  # dynamic shared memory one block may use on Hopper
+
+# The launch layout is decided here and only here; the kernel runs the
+# instance it is given and refuses a layout it cannot hold.
+# The kernel's instances (csrc/rollout_step.cu, launch()): the training
+# points a lane holds, a block's threads and the blocks an SM runs at once
+# (its __launch_bounds__, so its register budget).  Each dtype's list runs
+# from the most resident to the least: more warps hide more of the exps'
+# latency.  float64 lanes of more than 8 points take the one-block
+# instance, too few warps to hide float64's exp and sin/cos chains (32768 x
+# 1000 orbit-steps at N = 80 on an H100: 107 ms at 8 lanes of 10 points,
+# 83 ms at 16 of 5), so the team is widened before that.
+INSTANCES = {
+    torch.float32: ((10, 288, 3), (16, 288, 2), (10, 512, 1), (16, 512, 1)),
+    torch.float64: ((8, 288, 2), (16, 288, 1)),
+}
+P_MAX = 16           # training points a lane holds, in any instance
+SOLVER_THREADS = 32  # a block's loss-solve warp, where the block has room
+# a lane's row of shared memory: FIELDS values for each of its points,
+# rounded up to whole groups of PAIRS points worked on together
+FIELDS = 6
+PAIRS = {torch.float32: 2, torch.float64: 1}
+BLOCK_THREADS = 256  # compute threads of a block of narrow teams
+SM_COUNT = 132       # H100 SXM
+# the widest team the fill rule picks: float32's 512-lane team has no room
+# for a solver warp, so its block solves the loss boundary on the step's
+# chain; it runs only where 256 lanes cannot hold the slice
+FILL_TEAM_MAX = 256
+
+
+def max_threads(dtype: torch.dtype) -> int:
+    """The widest block of the dtype's instances."""
+    return max(t for _, t, _ in INSTANCES[dtype])
+
+
+def team_max(dtype: torch.dtype) -> int:
+    """The widest team: the largest power of two a block holds."""
+    return 1 << (max_threads(dtype).bit_length() - 1)
+
+
+def ns_max(dtype: torch.dtype) -> int:
+    return team_max(dtype) * P_MAX
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """How one launch lays the batch out: ``team`` lanes per orbit (a
+    power of two), each holding at most ``per_lane`` training points;
+    ``teams_per_block`` orbits in a block of ``threads`` threads (the
+    teams' lanes, and a solver warp where the block has room for one)
+    with ``smem_bytes`` of dynamic shared memory, run by the kernel's
+    ``instance`` (an entry of ``INSTANCES``)."""
+
+    team: int
+    per_lane: int
+    teams_per_block: int
+    threads: int
+    smem_bytes: int
+    instance: tuple[int, int, int]
+
+
+def launch_geometry(B: int, ns: int, nas: int, dtype: torch.dtype,
+                    sm_count: int = SM_COUNT,
+                    team: int | None = None) -> Geometry:
+    """Team, block and instance for a batch of ``B`` orbits over ``ns``
+    training and ``nas`` aux points.
+
+    The team is the smallest power of two whose lanes hold no more points
+    than an instance that shares its SM with other blocks takes (or the
+    widest team, whose lanes may hold up to ``P_MAX``), doubled
+    while the batch's ``B * team`` threads fall short of one full wave
+    (``sm_count`` SMs times the threads an SM holds of the dtype's most
+    resident instance) and the team is below ``FILL_TEAM_MAX`` and below
+    ``ns / PAIRS`` (wider, lanes would hold less than one group of
+    points).  Then it is halved while a block would need more shared
+    memory than ``SMEM_LIMIT`` and its lanes can still hold the slice.
+    ``team`` forces the team size instead.  A block holds
+    ``BLOCK_THREADS // team`` teams (at least one, and at least a warp's
+    worth), fewer when the batch is small, so that it spreads over the
+    SMs.  The instance is the first of ``INSTANCES[dtype]`` that holds the
+    lane's points and the block's threads.
+    Shared memory: the aux table (4 columns), two slots of per-warp partial
+    sums, two of the loss-check staging (3 values per team), and a row per
+    lane (``FIELDS`` values for each of its points, rounded up to whole
+    ``PAIRS``, and one more).
+    """
+    widest = team_max(dtype)
+    if ns > ns_max(dtype):
+        raise ValueError(f"rollout kernel takes at most {ns_max(dtype)} "
+                         f"training points in {dtype} ({widest} lanes x "
+                         f"{P_MAX}); got {ns}")
+    elt = torch.empty((), dtype=dtype).element_size()
+    instances = INSTANCES[dtype]
+
+    def layout(team: int) -> Geometry:
+        warp_teams = max(1, 32 // team)  # teams that make up one warp
+        tpb = min(max(1, BLOCK_THREADS // team), max(1, -(-B // sm_count)))
+        tpb = -(-tpb // warp_teams) * warp_teams
+        compute = team * tpb
+        per_lane = -(-ns // team)
+        pairs = PAIRS[dtype]
+        row = FIELDS * (-(-per_lane // pairs) * pairs) + 1
+        smem = (4 * nas + 4 * (compute // 32) + 6 * tpb
+                + row * compute) * elt
+        threads = compute + (SOLVER_THREADS if compute + SOLVER_THREADS
+                             <= max_threads(dtype) else 0)
+        inst = next(i for i in instances
+                    if i[0] >= per_lane and i[1] >= threads)
+        return Geometry(team, per_lane, tpb, threads, smem, inst)
+
+    if team is not None:
+        if (team < 1 or team > widest or team & (team - 1)
+                or -(-ns // team) > P_MAX):
+            raise ValueError(f"team {team}: need a power of two <= "
+                             f"{widest} with ceil({ns} / team) <= {P_MAX}")
+        return layout(team)
+    shared = max(p for p, _, blocks in instances if blocks > 1)
+    narrowest = 1
+    while -(-ns // narrowest) > shared and narrowest < widest:
+        narrowest *= 2
+    cap = min(FILL_TEAM_MAX,
+              1 << max(0, -(-ns // PAIRS[dtype]) - 1).bit_length())
+    _, threads, blocks = instances[0]
+    fill = sm_count * threads * blocks
+    team = narrowest
+    while team < cap and B * team < fill:
+        team *= 2
+    while team > narrowest and layout(team).smem_bytes > SMEM_LIMIT:
+        team //= 2
+    return layout(team)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,8 +332,8 @@ def rollout_reference(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int,
 
 
 def _validate(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int,
-              iters: int) -> None:
-    """Raise on anything the kernel does not take."""
+              iters: int, team: int | None = None) -> Geometry:
+    """Raise on anything the kernel does not take; else its geometry."""
     dev, dtype = q0.device, q0.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"rollout kernel takes float32 or float64, not {dtype}")
@@ -218,25 +351,25 @@ def _validate(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int,
         raise ValueError(f"batch {q0.shape[0]} too large")
     if nm < 1 or iters < 0:
         raise ValueError(f"need nm >= 1 and iters >= 0; got {nm}, {iters}")
-    if shared_memory_bytes(pm) > SMEM_LIMIT:
+    sm_count = (torch.cuda.get_device_properties(dev).multi_processor_count
+                if dev.type == "cuda" else SM_COUNT)
+    geo = launch_geometry(q0.shape[0], pm.ns, pm.nas, dtype, sm_count, team)
+    if geo.smem_bytes > SMEM_LIMIT:
         raise ValueError(
-            f"training set ({pm.ns} + {pm.nas} aux points, {dtype}) needs "
-            f"{shared_memory_bytes(pm)} bytes of shared memory; a block has "
-            f"{SMEM_LIMIT}")
+            f"aux table ({pm.nas} points, {dtype}) needs {geo.smem_bytes} "
+            f"bytes of shared memory; a block has {SMEM_LIMIT}")
+    return geo
 
 
-def shared_memory_bytes(pm: PackedModels) -> int:
-    """Dynamic shared memory of one block: 6 training and 5 aux columns."""
-    return (6 * pm.ns + 5 * pm.nas) * pm.uq.element_size()
-
-
-_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
 
 
 def _launch(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int, iters: int,
-            loss_check: bool):
+            loss_check: bool, team: int | None = None):
+    """Launch the kernel on CUDA tensors; ``team`` forces the lanes per
+    orbit (``launch_geometry`` chooses by default)."""
     global LAUNCHES
-    _validate(pm, q0, p0, nm, iters)
+    geo = _validate(pm, q0, p0, nm, iters, team)
     dev, dtype = q0.device, q0.dtype
     B = q0.shape[0]
     sym = "rollout_step_f32" if dtype == torch.float32 else "rollout_step_f64"
@@ -247,7 +380,8 @@ def _launch(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int, iters: int,
     with torch.cuda.device(dev):
         rc = fn(*(ptr(t) for t in pm.tensors()), ptr(q0), ptr(p0), ptr(Q),
                 ptr(P), B, pm.ns, pm.nas, nm, iters, pm.kind, pm.aux_kind,
-                int(loss_check), _build.stream(dev))
+                int(loss_check), geo.team, geo.teams_per_block, geo.threads,
+                geo.smem_bytes, *geo.instance, _build.stream(dev))
     _build.check(rc, "rollout kernel")
     LAUNCHES += 1
     return Q, P

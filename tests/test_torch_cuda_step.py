@@ -184,11 +184,110 @@ def test_validate_rejects_bad_inputs():
         cs._validate(pm, torch.stack([q0, q0], 1)[:, 0], p0, 3, 5)
     with pytest.raises(ValueError, match="nm"):
         cs._validate(pm, q0, p0, 0, 5)
-    # float32 at N = 4096 fits a block's shared memory; 6000 does not
-    big = dataclasses.replace(pm, ns=4096, nas=4096)
-    assert cs.shared_memory_bytes(big) <= cs.SMEM_LIMIT
-    with pytest.raises(ValueError, match="shared memory"):
-        cs._validate(dataclasses.replace(pm, ns=6000, nas=6000), q0, p0, 3, 5)
+    # float32 and float64 at N = 4096 are accepted; one lane holds at most
+    # P_MAX points of a team of at most team_max lanes, so more raise (and
+    # so does anything beyond 1024 lanes' worth)
+    pm64 = cs.pack_models(*jax_models_to_port(sgp, aux), mod_q=2 * np.pi,
+                          dtype=torch.float64)
+    for p, q, pp in ((pm, q0, p0), (pm64, q0.double(), p0.double())):
+        geo = cs._validate(dataclasses.replace(p, ns=4096, nas=512), q,
+                           pp, 3, 5)
+        assert geo.team * geo.per_lane >= 4096
+        assert geo.per_lane <= cs.P_MAX
+        assert cs.ns_max(q.dtype) == cs.team_max(q.dtype) * cs.P_MAX >= 4096
+        for ns in (cs.ns_max(q.dtype) + 8, 1024 * cs.P_MAX + 8):
+            with pytest.raises(ValueError, match="at most [0-9]+ training"):
+                cs._validate(dataclasses.replace(p, ns=ns), q, pp, 3, 5)
+        # the aux table must fit a block's shared memory
+        with pytest.raises(ValueError, match="shared memory"):
+            cs._validate(dataclasses.replace(p, nas=60000), q, pp, 3, 5)
+    with pytest.raises(ValueError, match="power of two"):
+        cs._validate(pm, q0, p0, 3, 5, team=12)
+
+
+GEOMETRY_CASES = [  # B, ns, nas: the main path's shapes and ragged ones
+    (32768, 80, 80), (30, 80, 80), (30, 4096, 512), (4096, 4096, 512),
+    (1, 8, 8), (7, 37, 13), (300, 1000, 4000), (100000, 4096, 3),
+    (5000, 129, 2500), (2, 4095, 1),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,ns,nas", GEOMETRY_CASES)
+def test_launch_geometry(B, ns, nas, dtype):
+    g = cs.launch_geometry(B, ns, nas, dtype)
+    team_max, max_threads = cs.team_max(dtype), cs.max_threads(dtype)
+    assert g.team & (g.team - 1) == 0 and 1 <= g.team <= team_max <= 1024
+    assert g.per_lane * g.team >= ns and g.per_lane <= cs.P_MAX
+    assert g.per_lane == -(-ns // g.team)
+    compute = g.team * g.teams_per_block  # a solver warp follows if room
+    assert g.threads == compute + cs.SOLVER_THREADS * (
+        compute + cs.SOLVER_THREADS <= max_threads)
+    assert g.threads <= max_threads <= 1024
+    assert compute <= team_max and compute % 32 == 0
+    # the instance: the first (most resident) that holds the lane's points
+    # and the block's threads
+    instances = cs.INSTANCES[dtype]
+    assert g.instance == next(i for i in instances
+                              if i[0] >= g.per_lane and i[1] >= g.threads)
+    assert max(p for p, _, _ in instances) == cs.P_MAX
+    # the narrowest team whose lanes fit an instance that shares its SM,
+    # or wider: never so wide that the batch overfills one wave, nor wider
+    # than ns needs
+    shared = max(p for p, _, blocks in instances if blocks > 1)
+    narrowest = min(team_max, 1 << max(0, -(-ns // shared) - 1).bit_length())
+    assert g.team >= narrowest
+    _, threads, blocks = instances[0]
+    fill = cs.SM_COUNT * threads * blocks
+    cap = min(cs.FILL_TEAM_MAX,
+              1 << max(0, -(-ns // cs.PAIRS[dtype]) - 1).bit_length())
+    if g.team > narrowest:
+        assert B * (g.team // 2) < fill
+    # ... unless a block of twice the team would overflow shared memory
+    assert (B * g.team >= fill or g.team >= cap
+            or cs.launch_geometry(B, ns, nas, dtype, team=2 * g.team)
+            .smem_bytes > cs.SMEM_LIMIT)
+    # a small batch spreads one team a block over the SMs
+    if B <= cs.SM_COUNT:
+        assert compute <= max(32, g.team)
+    elt = torch.empty((), dtype=dtype).element_size()
+    pairs = cs.PAIRS[dtype]
+    records = -(-g.per_lane // pairs) * pairs
+    assert g.smem_bytes == (4 * nas + 4 * compute // 32
+                            + 6 * g.teams_per_block
+                            + (cs.FIELDS * records + 1) * compute) * elt
+    assert g.smem_bytes <= cs.SMEM_LIMIT
+
+
+def test_launch_geometry_forced_team():
+    g = cs.launch_geometry(77, 37, 13, torch.float32, team=8)
+    assert (g.team, g.per_lane, g.teams_per_block, g.threads) == (8, 5, 4, 64)
+    assert g.instance == (10, 288, 3)
+    assert cs.launch_geometry(77, 6, 6, torch.float64, team=1).threads == 64
+    for bad in (0, 3, 1024, 1):  # 1 lane cannot hold 37 points
+        with pytest.raises(ValueError, match="power of two"):
+            cs.launch_geometry(77, 37, 13, torch.float32, team=bad)
+    # float32's 512-lane team runs without a solver warp; float64's widest
+    # team is 256 lanes, with one
+    g = cs.launch_geometry(3, 1000, 1000, torch.float32, team=512)
+    assert (g.threads, g.per_lane, g.instance) == (512, 2, (10, 512, 1))
+    g = cs.launch_geometry(3, 1000, 1000, torch.float64, team=256)
+    assert (g.threads, g.instance) == (288, (8, 288, 2))
+    with pytest.raises(ValueError, match="power of two <= 256"):
+        cs.launch_geometry(3, 1000, 1000, torch.float64, team=512)
+    # a row holds the lane's own points, not the instance's: 256 lanes of
+    # 4 points and a 1000-point aux table fit a float64 block
+    assert g.smem_bytes <= cs.SMEM_LIMIT
+    # lanes of more than 10 (float32) or 8 (float64) points take the
+    # instances that hold 16; float32's 512-lane team its 512-thread one
+    assert cs.launch_geometry(30, 4096, 512, torch.float32).instance == \
+        (16, 288, 2)
+    assert cs.launch_geometry(30, 4096, 512, torch.float64).instance == \
+        (16, 288, 1)
+    assert cs.launch_geometry(30, 100, 100, torch.float64,
+                              team=8).instance == (16, 288, 1)
+    assert cs.launch_geometry(30, 8192, 512, torch.float32).instance == \
+        (16, 512, 1)
 
 
 def test_rollout_model_matches_rollout_pallas():
