@@ -654,7 +654,8 @@ def phase_large_kernels_vs_plain(dev, sgp):
         for side in ("right", "left")}
 
     S = cuda_syrk.syrk_lower(W)
-    S64 = cuda_syrk.syrk_lower_reference(W.double())
+    W64 = W.double()  # for the float64 reference and DGEMM, not timed
+    S64 = cuda_syrk.syrk_lower_reference(W64)
     res["syrk_rel_err"] = _rel_to_max(S, S64)
     res["syrk_plain_f32_rel_err"] = _rel_to_max(
         cuda_syrk.syrk_lower_reference(W), S64)
@@ -663,11 +664,19 @@ def phase_large_kernels_vs_plain(dev, sgp):
         max_abs_err=float((S.double() - S64).abs().max()),
         ms=_time(lambda: cuda_syrk.syrk_lower(W)),
         plain_ms=_time(lambda: cuda_syrk.syrk_lower_reference(W)),
-        library_ms=_time(lambda: torch.matmul(W.T, W)),
-        # the lower triangle of W^T W over a triangular W: m^3 / 6 MACs
+        # the same function, float64 products and sums: cuBLAS DGEMM on
+        # the float64 copy of W
+        library_ms=_time(lambda: torch.matmul(W64.T, W64)),
+        # cuBLAS float32 W.T @ W accumulates in float32: another function
+        library_f32_accumulation_ms=_time(lambda: torch.matmul(W.T, W)),
+        # the lower triangle of W^T W over a triangular W: m^3 / 6 MACs.
+        # The kernel runs on the float64 tensor cores (DMMA), whose
+        # 67 TFLOP/s peak the FP32 rate used here equals; the float64 SIMT
+        # pipe's 34 TFLOP/s would not bound it.
         **dict(zip(("bound_ms", "bound_by"),
                    bound(2 * W.numel() * W.element_size(), m ** 3 / 3))))
-    del S64
+    res["syrk_tflops"] = m ** 3 / 3 / (kernels["syrk"]["ms"] * 1e9)
+    del S64, W64
 
     Kbar = 0.5 * S - 0.5 * torch.outer(alpha, alpha)
     got = cuda_cov.cov_param_grads("per_se", X, X, params, sig, Kbar)

@@ -6,24 +6,23 @@
 //  * sympgpr_tpu/ops/pallas_trimm.py:40 _trimm_tile (batched A @ L and
 //    L @ A, L lower) -> trimm_kernel<kRight> / <kLeft>;
 //  * sympgpr_tpu/ops/pallas_syrk.py:33 _syrk_tile (W^T W, W lower)
-//    -> tri_gemm_kernel<kSyrk>.
+//    -> syrk_kernel.
 // The plain PyTorch versions are torch.tril(L) followed by torch.matmul
 // (ops/cuda_trimm.py) and W.T @ W (ops/cuda_syrk.py).
 //
-// What bounds them: arithmetic.  A (64 x 64) output tile reads 2 x 16 x 64
-// values per 16-deep k step and does 64 x 64 x 16 multiply-adds from them,
-// 32 multiply-adds per value loaded from device memory, so the float32 (or
-// float64) FMA pipes and the shared-memory reads that feed them set the
-// time, not HBM.  The structural zeros are what the design saves: the triangular
-// product needs half of a dense product's multiply-adds, the syrk a sixth.
+// What bounds them: arithmetic.  A 128 x 128 output tile reads 2 x 128
+// values per k step and does 128 x 128 multiply-adds from them, 64 per
+// value loaded from device memory, so the multiply-add units and the
+// shared-memory reads that feed them set the time, not HBM.  The
+// structural zeros are what the design saves: the triangular product needs
+// half of a dense product's multiply-adds, the syrk a sixth.
 //
-// trimm_kernel (the triangular matmuls).  The first version was
-// tri_gemm_kernel below in its kRight / kLeft modes; on an H100 it ran the
-// 8 products of one n = 8192 inverse at 17.8 TFLOP/s against cuBLAS's 48.6
-// on the dense products: 4 x 4 outputs per thread (2 FMAs per value read
-// from shared memory), one stage with every load waiting on the FMAs, a
-// 16-way bank conflict on the transposing A store, masks on every element.
-// Those branches stay in that template, which the syrk shares, unused.
+// trimm_kernel (the triangular matmuls).  A first version, a 64 x 64 SIMT
+// GEMM shared with the syrk, ran the 8 products of one n = 8192 inverse at
+// 17.8 TFLOP/s against cuBLAS's 48.6 on the dense products on an H100:
+// 4 x 4 outputs per thread (2 FMAs per value read from shared memory), one
+// stage with every load waiting on the FMAs, a 16-way bank conflict on the
+// transposing A store, masks on every element.
 //  * Tile: 128 x 128 outputs per block of 256 threads (float32), 8 x 8 per
 //    thread as 2 x 2 sub-tiles of 4 x 4.  Per 4 k-steps a thread reads its
 //    8 A rows (one LDS.128 of 4 k each) and 4 x 2 B vectors, 16 LDS.128 =
@@ -73,164 +72,89 @@
 //  * Heaviest tiles first: the 1-D grid is decoded so that the tiles with
 //    the longest k-range run first (kRight: k >= col0, column tile 0 first;
 //    kLeft: k < row0 + 128, the last row tile first), and the last wave
-//    holds the shortest.  The structural k-skip is as before.
+//    holds the shortest.  For C = A L tile column j0 only accumulates
+//    k >= j0, for C = L A tile row i0 only k < i0 + the tile size.
 //  * Strided operands: each has a leading dimension and a batch stride, so
 //    the blocked inverse passes views of its buffers, and a sign of +1 or
 //    -1 (exact) is applied in the epilogue.
-//  * Plain IEEE float32 FMAs accumulated in float32; no TF32, no fast math.
+//  * Plain IEEE float32 FMAs accumulated in float32; no TF32, no fast math
+//    (a reduced-precision product turned real GP Choleskys into NaN,
+//    docs/DESIGN.md section 3).  W = L^{-1} from them is within 4e-6 of
+//    float64 at N = 4096.
 //
-// tri_gemm_kernel (now the syrk only; first version, no wgmma or TMA):
-//  * A classic shared-memory tiled GEMM: 64 x 64 output tile per block of
-//    256 threads, each thread a 4 x 4 register tile, k in steps of 16
-//    staged in shared memory.  Plain IEEE FMAs in float32 or float64; never
-//    TF32 (a reduced-precision product turned real GP Choleskys into NaN,
-//    docs/DESIGN.md section 3).
-//  * The syrk accumulates float32 input in float64 (inputs converted,
-//    DFMA, result rounded to float32 once).  S = Ky^{-1} feeds the trace
-//    term of the NLL gradient, a sum over all (2N)^2 entries.  With this
-//    kernel accumulating in float32 (one accumulator per output over k up
-//    to 8192) the Adam fit at N = 4096 went NaN after ~30 steps and
-//    escalated its jitter from 1e-2 to 1e-1 on an H100; with float64
-//    accumulation it stays at 1e-2.  cuBLAS's float32 W.T @ W in its place
-//    also stays at 1e-2 (another order of summation), so a float32
-//    accumulation as accurate as cuBLAS's may suffice; not tried.  The
-//    triangular matmuls keep float32 accumulation: W = L^{-1} from them is
-//    within 4e-6 of float64 there.
-//  * k-ranges skip the structural zeros: for C = A L tile column j0 only
-//    accumulates k >= j0; for C = L A tile row i0 only k < i0 + 64; the syrk
-//    tile (i, j), j <= i, only k >= i0.
-//  * Every load of the triangular operand is masked by element (row >= col)
-//    inside the tile, so no element above its diagonal is ever read: the
-//    upper triangle may hold anything, NaN included.
-//  * The syrk grid covers only the lower tile pairs (one block per pair, a
-//    1-D grid decoded to (i, j)); each block writes its tile and the
-//    mirrored upper tile, and a diagonal tile writes each element once.
-//  * The ragged edge (n not a multiple of 64) is masked in the kernel.
+// syrk_kernel (S = tril(W)^T tril(W), full and symmetric).
+//  * float64 accumulation.  S = Ky^{-1} feeds the trace term of the NLL
+//    gradient, a sum over all (2N)^2 entries.  A syrk that accumulated
+//    float32 input in float32 (one accumulator per output over k up to
+//    8192) drove the Adam fit at N = 4096 into a jitter escalation (sig2n
+//    1e-2 -> 1e-1) on an H100; with float64 accumulation it stays at 1e-2.
+//    A product of two float32 values is exact in float64, so float32 input
+//    converted to float64 and multiplied and summed on the float64 tensor
+//    cores keeps the accuracy of a float64 FMA chain; the result is rounded
+//    to float32 once.  float64 input runs the same kernel.  No TF32, no
+//    float32 accumulation.
+//  * What bounds it: the float64 tensor cores (DMMA), 67 TFLOP/s on an
+//    H100 SXM against 34 for the float64 SIMT pipe, on which a SIMT version
+//    of this kernel ran at 12.5 TFLOP/s.  The lower triangle of W^T W over
+//    a triangular W is n^3 / 6 multiply-adds (1.83e11 flop at n = 8192:
+//    2.74 ms at the DMMA peak; cuBLAS's DGEMM reaches 95 % of that peak on
+//    the dense product).  wgmma has no float64 form, so the products are
+//    warp-level mma.sync m16n8k4 with .f64 operands (mma_f64.cuh).  On an
+//    H100 at n = 8192 this kernel runs at ~70 % of the peak; a copy of it
+//    without the stage copies ran at ~79 %, without the fragment reads at
+//    ~72 %: feeding the tensor cores, not the products, sets the rest.
+//  * Tile: 128 x 128 outputs per block of 8 warps (2 along m x 4 along n),
+//    each warp 64 x 32 outputs = 4 x 4 m16n8 fragments, 64 float64
+//    accumulators a thread (220-240 registers, no spills); one block per
+//    SM.  Per 16-deep stage a warp reads 32 A and 16 B fragment values a
+//    lane for 64 DMMAs; the block's 96 KB of fragment reads per stage take
+//    ~768 clocks of shared-memory bandwidth against ~2048 of DMMA.  m16n8k8
+//    and m16n8k16 need more fragment registers and ran 5-9 % slower
+//    (spilling in float64), 16-byte fragment reads (rows and columns
+//    permuted in the tile) 4 % slower; 32 x 64 and 32 x 32 warp tiles ran
+//    within 2 % of 64 x 32.
+//  * Operands: Aop[m][k] = W[k][row0 + m] and Bop[k][c] = W[k][col0 + c]
+//    are both slabs of W's rows, so a stage (16 rows of W) is two 16 x 128
+//    row slabs, loaded along rows, 2 elements a thread (8-byte float32 or
+//    16-byte float64 loads, a warp on 32 consecutive pairs).  They pass
+//    through registers and are converted to float64 once per element and
+//    block, not per fragment read, then stored as float64: 2 stages of
+//    2 x 16 x 132 doubles (66 KB), one barrier per stage.  Stage k+1's
+//    loads are issued before stage k's products and stored halfway through
+//    them, so the stores run beside other warps' DMMAs instead of between
+//    the last DMMA and the barrier (4 % faster in float32 than storing
+//    after the products; a quarter of the way through, the loads have not
+//    landed).  A three-stage cp.async ring converted through shared memory
+//    ran 15 % slower: every element is then read and written once more.
+//  * Conflict-free fragment reads: a staged row is 132 doubles (128 + 4),
+//    so a fragment read, lane 4 g + t at row t and column g, falls on the
+//    8-byte bank pairs 4 t + g mod 16: distinct within each half-warp.  A
+//    warp stores 32 consecutive 16-byte pairs.
+//  * Masks only where they bite: a slab inside the matrix and wholly on or
+//    below W's diagonal (its last column <= its first row) takes unmasked
+//    pair loads.  Only the 8 stages of a tile pair where the A slab (and, on
+//    a diagonal tile, the B slab) straddles the diagonal, and those at the
+//    ragged edge, load by element, reading W[k][c] only for c <= k < n, so
+//    the upper triangle may hold anything, NaN included.  An odd n or a W
+//    off pair alignment loads by element everywhere (instance VEC = false).
+//  * Lower tile pairs only, heaviest first: the 1-D grid decodes to (i, j),
+//    j <= i, row tile 0 first; tile (i, j) accumulates only k >= 128 i,
+//    so row tile 0 has the longest k-range and the last wave the shortest.
+//    Each block writes its outputs on and below the diagonal and their
+//    mirrors above it, so S is exactly symmetric.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "async_copy.cuh"
+#include "mma_f64.cuh"
 
 namespace {
 
-constexpr int kBM = 64;  // output tile rows
-constexpr int kBN = 64;  // output tile columns
-constexpr int kBK = 16;  // k depth staged per step
-constexpr int kTM = 4;   // rows per thread
-constexpr int kTN = 4;   // columns per thread
-constexpr int kThreads = (kBM / kTM) * (kBN / kTN);
-
 constexpr int kRight = 0;  // C = A @ tril(B)
 constexpr int kLeft = 1;   // C = tril(A) @ B
-constexpr int kSyrk = 2;   // C = tril(A)^T @ tril(A), B == A
-
-// accumulator type: float64 for the syrk, the data's type otherwise
-template <typename T, int MODE>
-using Acc = std::conditional_t<MODE == kSyrk, double, T>;
-
-template <typename T, int MODE>
-__global__ void __launch_bounds__(kThreads)
-    tri_gemm_kernel(const T* __restrict__ A, const T* __restrict__ B,
-                    T* __restrict__ C, int n, size_t batch_stride) {
-  __shared__ T As[kBK][kBM];  // As[kk][m] = Aop[row0 + m][k0 + kk]
-  __shared__ T Bs[kBK][kBN];  // Bs[kk][c] = Bop[k0 + kk][col0 + c]
-
-  int bi, bj;
-  if constexpr (MODE == kSyrk) {
-    // lower tile pairs t = bi (bi + 1) / 2 + bj, bj <= bi
-    const int t = blockIdx.x;
-    bi = int((sqrt(8.0 * t + 1.0) - 1.0) * 0.5);
-    while (bi * (bi + 1) / 2 > t) --bi;
-    while ((bi + 1) * (bi + 2) / 2 <= t) ++bi;
-    bj = t - bi * (bi + 1) / 2;
-  } else {
-    bi = blockIdx.y;
-    bj = blockIdx.x;
-  }
-  const size_t off = size_t(blockIdx.z) * batch_stride;
-  A += off;
-  B += off;
-  C += off;
-  const int row0 = bi * kBM, col0 = bj * kBN;
-  int kbeg = 0, kend = n;
-  if constexpr (MODE == kRight) kbeg = col0;
-  if constexpr (MODE == kLeft) kend = min(n, row0 + kBM);
-  if constexpr (MODE == kSyrk) kbeg = row0;
-
-  const int tid = threadIdx.x;
-  const int tx = tid % (kBN / kTN), ty = tid / (kBN / kTN);
-  using A_t = Acc<T, MODE>;
-  A_t acc[kTM][kTN];
-#pragma unroll
-  for (int m = 0; m < kTM; ++m)
-#pragma unroll
-    for (int c = 0; c < kTN; ++c) acc[m][c] = A_t(0);
-
-  for (int k0 = kbeg; k0 < kend; k0 += kBK) {
-    for (int e = tid; e < kBM * kBK; e += kThreads) {
-      int m, kk;
-      T v = T(0);
-      if constexpr (MODE == kSyrk) {
-        // Aop[m][kk] = W[k0 + kk][row0 + m]: coalesced along m
-        m = e % kBM;
-        kk = e / kBM;
-        const int r = k0 + kk, c = row0 + m;
-        if (r < n && c < n && r >= c) v = A[size_t(r) * n + c];
-      } else {
-        kk = e % kBK;
-        m = e / kBK;
-        const int r = row0 + m, c = k0 + kk;
-        const bool tri = MODE == kLeft;  // Aop = tril(L)
-        if (r < n && c < n && (!tri || r >= c)) v = A[size_t(r) * n + c];
-      }
-      As[kk][m] = v;
-    }
-    for (int e = tid; e < kBK * kBN; e += kThreads) {
-      const int c = e % kBN, kk = e / kBN;
-      const int r = k0 + kk, cc = col0 + c;
-      const bool tri = MODE != kLeft;  // Bop = tril(L) or tril(W)
-      T v = T(0);
-      if (r < n && cc < n && (!tri || r >= cc)) v = B[size_t(r) * n + cc];
-      Bs[kk][c] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      A_t a[kTM], b[kTN];
-#pragma unroll
-      for (int m = 0; m < kTM; ++m) a[m] = A_t(As[kk][ty * kTM + m]);
-#pragma unroll
-      for (int c = 0; c < kTN; ++c) b[c] = A_t(Bs[kk][tx * kTN + c]);
-#pragma unroll
-      for (int m = 0; m < kTM; ++m)
-#pragma unroll
-        for (int c = 0; c < kTN; ++c) acc[m][c] = fma(a[m], b[c], acc[m][c]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int m = 0; m < kTM; ++m) {
-    const int r = row0 + ty * kTM + m;
-#pragma unroll
-    for (int c = 0; c < kTN; ++c) {
-      const int cc = col0 + tx * kTN + c;
-      if (r >= n || cc >= n) continue;
-      const T v = T(acc[m][c]);
-      if constexpr (MODE == kSyrk) {
-        if (bi != bj || r >= cc) C[size_t(r) * n + cc] = v;
-        if (bi != bj || r > cc) C[size_t(cc) * n + r] = v;  // mirror
-      } else {
-        C[size_t(r) * n + cc] = v;
-      }
-    }
-  }
-}
 
 // --- trimm_kernel ---------------------------------------------------------
 
@@ -521,13 +445,190 @@ int trimm(const T* A, long long lda, long long sa, const T* B, long long ldb,
                  : trimm_launch<T, kLeft, false>(p, st));
 }
 
+// --- syrk_kernel ----------------------------------------------------------
+
+constexpr int kSyrkBM = 128;      // output tile, rows and columns
+constexpr int kSyrkBK = 16;       // rows of W (k) per stage
+constexpr int kSyrkWM = 64;       // warp tile rows
+constexpr int kSyrkWN = 32;       // warp tile columns
+constexpr int kSyrkStoreAt = kSyrkBK / 2;  // next stage stored before k
+constexpr int kSyrkThreads = 32 * (kSyrkBM / kSyrkWM) * (kSyrkBM / kSyrkWN);
+constexpr int kSyrkLd = kSyrkBM + 4;          // staged row, doubles
+constexpr int kSyrkSlab = kSyrkBK * kSyrkLd;  // one operand of a stage
+constexpr int kSyrkSmem = 2 * 2 * kSyrkSlab * int(sizeof(double));
+constexpr int kSyrkPairs = kSyrkBK * kSyrkBM / 2 / kSyrkThreads;
+static_assert(kSyrkPairs * kSyrkThreads * 2 == kSyrkBK * kSyrkBM, "pairs");
+static_assert(kSyrkBK % 4 == 0 && kSyrkStoreAt % 4 == 0 &&
+                  kSyrkStoreAt < kSyrkBK && kSyrkLd % 16 == 4,
+              "layout");
+
+template <typename T>
+struct Pair;
+template <>
+struct Pair<float> {
+  using type = float2;
+};
+template <>
+struct Pair<double> {
+  using type = double2;
+};
+
+// One operand's slab of a stage, W[k0 .. k0 + 15][c0 .. c0 + 127], this
+// thread's share of it in registers: pair q = threadIdx.x + p * threads
+// holds row q / 64 and columns c0 + 2 (q % 64) .. + 1.
+template <typename T, bool VEC>
+struct SyrkSlab {
+  typename Pair<T>::type v[kSyrkPairs];
+
+  __device__ __forceinline__ void load(const T* __restrict__ W, int n, int k0,
+                                       int c0) {
+    constexpr int R = kSyrkBM / 2;  // pairs of a row
+    // inside the matrix and wholly on or below the diagonal
+    const bool full = VEC && k0 + kSyrkBK <= n && c0 + kSyrkBM <= n &&
+                      c0 + kSyrkBM - 1 <= k0;
+#pragma unroll
+    for (int p = 0; p < kSyrkPairs; ++p) {
+      const int q = int(threadIdx.x) + p * kSyrkThreads;
+      const int r = k0 + q / R, c = c0 + 2 * (q % R);
+      const T* src = W + size_t(r) * n + c;
+      if (full) {
+        v[p] = *reinterpret_cast<const typename Pair<T>::type*>(src);
+      } else {  // c <= r < n: inside the matrix, on or below the diagonal
+        v[p].x = r < n && c <= r ? src[0] : T(0);
+        v[p].y = r < n && c + 1 <= r ? src[1] : T(0);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(double* slab) const {
+    constexpr int R = kSyrkBM / 2;
+#pragma unroll
+    for (int p = 0; p < kSyrkPairs; ++p) {
+      const int q = int(threadIdx.x) + p * kSyrkThreads;
+      *reinterpret_cast<double2*>(slab + (q / R) * kSyrkLd + 2 * (q % R)) =
+          make_double2(double(v[p].x), double(v[p].y));
+    }
+  }
+};
+
+// S = tril(W)^T tril(W) for one lower tile pair per block, products and
+// sums in float64 on the tensor cores.  VEC: n is even and W pair-aligned.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kSyrkThreads, 1)
+    syrk_kernel(const T* __restrict__ W, T* __restrict__ S, int n) {
+  constexpr int MT = kSyrkWM / 16, NT = kSyrkWN / 8;  // m16n8 fragments
+  // stage st: the A slab (W's columns row0 ...), then the B slab (col0 ...)
+  extern __shared__ double2 syrk_smem[];
+  double* const smem = reinterpret_cast<double*>(syrk_smem);
+
+  // lower tile pairs t = bi (bi + 1) / 2 + bj, bj <= bi: row tile 0, whose
+  // k-range k >= row0 is the longest, first
+  const int t = int(blockIdx.x);
+  int bi = int((sqrt(8.0 * t + 1.0) - 1.0) * 0.5);
+  while (bi * (bi + 1) / 2 > t) --bi;
+  while ((bi + 1) * (bi + 2) / 2 <= t) ++bi;
+  const int bj = t - bi * (bi + 1) / 2;
+  const int row0 = bi * kSyrkBM, col0 = bj * kSyrkBM;
+  const int ntiles = (n - row0 + kSyrkBK - 1) / kSyrkBK;
+
+  const int warp = int(threadIdx.x) / 32, lane = int(threadIdx.x) % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int wm = (warp % (kSyrkBM / kSyrkWM)) * kSyrkWM;
+  const int wn = (warp / (kSyrkBM / kSyrkWM)) * kSyrkWN;
+
+  double acc[MT][NT][4];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mi][ni][i] = 0.0;
+
+  SyrkSlab<T, VEC> sa, sb;
+  sa.load(W, n, row0, row0);
+  sb.load(W, n, row0, col0);
+  sa.store(smem);
+  sb.store(smem + kSyrkSlab);
+  __syncthreads();
+  for (int kt = 0; kt < ntiles; ++kt) {
+    const bool more = kt + 1 < ntiles;
+    if (more) {  // in flight while this stage's products run
+      const int k1 = row0 + (kt + 1) * kSyrkBK;
+      sa.load(W, n, k1, row0);
+      sb.load(W, n, k1, col0);
+    }
+    // fragment reads at row tq and column g of the warp's tile
+    const double* as =
+        smem + (kt % 2) * 2 * kSyrkSlab + tq * kSyrkLd + wm + g;
+    const double* bs = as - wm + kSyrkSlab + wn;
+#pragma unroll
+    for (int kk = 0; kk < kSyrkBK; kk += 4) {
+      if (kk == kSyrkStoreAt && more) {  // beside other warps' DMMAs
+        double* next = smem + ((kt + 1) % 2) * 2 * kSyrkSlab;
+        sa.store(next);
+        sb.store(next + kSyrkSlab);
+      }
+      double b[NT];
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni) b[ni] = bs[kk * kSyrkLd + ni * 8];
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        const double a[2] = {as[kk * kSyrkLd + mi * 16],
+                             as[kk * kSyrkLd + mi * 16 + 8]};
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni) mma_f64(acc[mi][ni], a, b[ni]);
+      }
+    }
+    __syncthreads();  // stage kt + 1 complete; stage kt free
+  }
+
+  // outputs on and below the diagonal, and their mirrors above it (a
+  // diagonal tile holds both triangles; only c <= r is written from it)
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + wm + mi * 16 + g + 8 * h;
+      if (r >= n) continue;
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni) {
+        const int c = col0 + wn + ni * 8 + 2 * tq;
+        const T v0 = T(acc[mi][ni][2 * h]), v1 = T(acc[mi][ni][2 * h + 1]);
+        T* low = S + size_t(r) * n + c;
+        if (VEC && c + 1 <= r) {
+          typename Pair<T>::type v;
+          v.x = v0;
+          v.y = v1;
+          *reinterpret_cast<typename Pair<T>::type*>(low) = v;
+        } else {
+          if (c <= r) low[0] = v0;
+          if (c + 1 <= r) low[1] = v1;
+        }
+        if (c < r) S[size_t(c) * n + r] = v0;
+        if (c + 1 < r) S[size_t(c + 1) * n + r] = v1;
+      }
+    }
+}
+
+template <typename T, bool VEC>
+cudaError_t syrk_launch(const T* W, T* S, int n, cudaStream_t st) {
+  auto kern = syrk_kernel<T, VEC>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSyrkSmem);
+  if (e != cudaSuccess) return e;
+  const unsigned nt = unsigned((n + kSyrkBM - 1) / kSyrkBM);
+  kern<<<nt * (nt + 1) / 2, kSyrkThreads, kSyrkSmem, st>>>(W, S, n);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int syrk(const T* W, T* S, int n, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned nt = unsigned((n + kBM - 1) / kBM);
-  tri_gemm_kernel<T, kSyrk><<<nt * (nt + 1) / 2, kThreads, 0, st>>>(W, W, S,
-                                                                     n, 0);
-  return int(cudaGetLastError());
+  const bool vec = n % 2 == 0 &&
+                   reinterpret_cast<uintptr_t>(W) % (2 * sizeof(T)) == 0 &&
+                   reinterpret_cast<uintptr_t>(S) % (2 * sizeof(T)) == 0;
+  return int(vec ? syrk_launch<T, true>(W, S, n, st)
+                 : syrk_launch<T, false>(W, S, n, st));
 }
 
 }  // namespace

@@ -6,9 +6,9 @@ from W = L^{-1} for the closed-form NLL gradient.  The hand-written CUDA
 kernel (``csrc/tri_matmul.cu``, replacing the Pallas kernel ``_syrk_tile``)
 computes only the lower tiles, accumulates only the k-range where W is not
 zero, never reads W above its diagonal, and writes each tile's mirror too.
-It accumulates float32 input in float64: with this kernel's float32
-accumulation the Adam fit at N = 4096 left its path and escalated its
-jitter (``csrc/tri_matmul.cu``).
+It converts float32 input to float64 and multiplies and sums on the float64
+tensor cores: a float32 accumulation drove the Adam fit at N = 4096 into a
+jitter escalation (``csrc/tri_matmul.cu``).
 CPU tensors run the plain version ``W.T @ W``; CUDA tensors launch the
 kernel or raise.  ``LAUNCHES`` counts kernel launches.
 """

@@ -141,21 +141,50 @@ def test_trimm_matches_plain(cuda, right, dtype, s, nb, layout):
         assert torch.isnan(buf[~inside]).all()
 
 
-@pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("n", [256, 300])
-def test_syrk_matches_plain(cuda, n, dtype):
-    dt = DTYPES[dtype]
-    rng = np.random.default_rng(n)
-    W = torch.tensor(np.tril(rng.standard_normal((n, n))), dtype=dt,
-                     device=cuda)
+def _syrk_checked(W):
+    """The syrk kernel on W with NaN above its diagonal (never read); its
+    error against float64 relative to max|S|, S exactly symmetric."""
     before = cuda_syrk.LAUNCHES
     S = cuda_syrk.syrk_lower(W + torch.triu(torch.full_like(W, float("nan")),
                                             1))
     torch.cuda.synchronize()
     assert cuda_syrk.LAUNCHES == before + 1
-    ref = cuda_syrk.syrk_lower_reference(W.double())
-    assert _rel(S.double(), ref) <= (1e-6 if dt == torch.float32 else 1e-12)
     assert torch.equal(S, S.T)
+    return _rel(S.double(), W.double().T @ W.double())
+
+
+# n below, at and across the 128-wide tile and the 16-deep k stage, odd n
+# (element loads everywhere) and several waves of tile pairs
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("n", [1, 7, 127, 128, 129, 300, 513, 1000, 2048])
+def test_syrk_matches_plain(cuda, n, dtype):
+    dt = DTYPES[dtype]
+    rng = np.random.default_rng(n)
+    W = torch.tensor(np.tril(rng.standard_normal((n, n))), dtype=dt,
+                     device=cuda)
+    assert _syrk_checked(W) <= (1e-6 if dt == torch.float32 else 1e-12)
+
+
+def test_syrk_gp_inverse_factor(cuda):
+    """W = L^{-1} of a float32 GP covariance (2N = 2048, the fit's per_se
+    hyperparameters and sig2n) through the kernels, as the fit forms it.
+    Dropping the 16 rows of any one k stage changes S by
+    max_j sum_k W[k, j]^2 over those rows (the largest entry of a PSD
+    matrix is on its diagonal); that is >= 2.5e-2 of max|S| here, so the
+    1e-6 tolerance rejects a kernel that drops a k stage."""
+    X = _points(1024, 7, torch.float32, cuda)
+    p = torch.tensor([0.541, 1.391], device=cuda)
+    K = cuda_cov.build_K_blocks("per_se", X, X, p,
+                                torch.tensor(26.55, device=cuda))
+    L, info = torch.linalg.cholesky_ex(
+        K + 1e-2 * torch.eye(K.shape[0], device=cuda))
+    assert int(info) == 0
+    W = tri_inv_blocked(L).contiguous()
+    W64 = W.double()
+    scale = float((W64.T @ W64).abs().max())
+    sq = (W64 ** 2).reshape(-1, 16, W.shape[0]).sum(1)
+    assert float(sq.max(1).values.min()) / scale > 1e3 * 1e-6
+    assert _syrk_checked(W) <= 1e-6
 
 
 def test_spd_inverse_through_kernels(cuda, monkeypatch):

@@ -32,7 +32,7 @@ def _tril_case(n, seed):
     return np.tril(rng.standard_normal((n, n))) + n * np.eye(n)
 
 
-@pytest.mark.parametrize("n", [64, 200, 256])
+@pytest.mark.parametrize("n", [1, 64, 129, 200, 256, 300])
 def test_syrk_lower(n):
     rng = np.random.default_rng(n)
     W = np.tril(rng.standard_normal((n, n)))
