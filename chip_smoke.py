@@ -8,15 +8,20 @@ per source, all at once) and drives two main paths on the card:
   crossings, 30 test orbits, nm=1000) through the rollout kernel;
 * the large-N tokamak workload (``tokamak_large``: N=4096 real crossings,
   60 Adam steps over the closed-form NLL gradient in float32, 30 orbits
-  over nm=1000) through the covariance build and contraction, triangular
-  matmul, syrk and rollout kernels.
+  over nm=1000, and the same models rolled out in float64 by the plain
+  fast path) through the covariance build and contraction (their
+  symmetric, fused modes), triangular matmul, syrk and rollout kernels.
 
 Each kernel is held against its plain PyTorch version at the main path's
-shapes, and both are timed with CUDA events, beside the least time the
-card could take for the same work (bytes over HBM rate, or operations over
-the rate of their unit) and, where one PyTorch call computes the same
-function, that call's time.  The rollout kernel is also timed at the four
-float32 shapes of the main paths (``rollout_shapes``: the bench batch
+shapes, and both are timed with CUDA events around one call (best of 3),
+beside the least time the card could take for the same work (bytes over
+HBM rate, or operations over the rate of their unit) and, where one
+PyTorch call computes the same function, that call's time.  The
+covariance kernels (~0.1 ms, where one call's time holds its wrapper's
+host work) also print their time over 20 calls back to back (``call_ms``)
+and ``torch.profiler``'s device time of their kernels (``kernel_ms``, null
+where the profiler records none).  The rollout kernel is also timed at
+the four float32 shapes of the main paths (``rollout_shapes``: the bench batch
 32768 x 1000 and the reference 30 x 1000 at N=80, ``tokamak_large``'s
 30 x 1000 apply and 4096 x 256 batch at N=4096) and held against its plain
 version in float64 at N=4096.
@@ -80,6 +85,9 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12    # outside the tensor cores
 FP64_FLOP_PER_S = 34e12    # outside the tensor cores
 SFU_EXP_PER_S = 132 * 16 * 1.98e9  # 16 transcendentals per clock per SM
+# one instruction a clock from each of an SM's 4 schedulers, for 32 lanes:
+# the rate at which the card issues thread-instructions (= FP32 lanes)
+INSTR_PER_S = FP32_FLOP_PER_S / 2
 
 # FP32 operations (an FMA counts 2) per pair in the rollout kernel's
 # formulas; the exps are counted apart, on the SFUs
@@ -91,11 +99,12 @@ FLOP_ORBIT = 250  # per orbit and step: the Newton updates, the loss solve
 
 
 def bound(nbytes: float, flops: float, fp64: bool = False,
-          exps: float = 0.0) -> tuple[float, str]:
-    """(least ms, "bytes" or "operations") for the work."""
+          exps: float = 0.0, instrs: float = 0.0) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations") for the work; ``instrs`` are
+    thread-instructions, at the card's issue rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = max(flops / (FP64_FLOP_PER_S if fp64 else FP32_FLOP_PER_S),
-                exps / SFU_EXP_PER_S)
+                exps / SFU_EXP_PER_S, instrs / INSTR_PER_S)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -114,6 +123,74 @@ def rollout_bound(B: int, nm: int, ns: int, nas: int, elt: int,
     ms, by = bound(nbytes, flops, elt == 8, 0.0 if elt == 8 else exps)
     return dict(bound_ms=ms, bound_by=by, exps=exps, flops=flops,
                 bytes=nbytes)
+
+
+# SASS opcodes of the floating-point pipes (FP32, FP64, conversions, SFU)
+FP_OPS = {"FADD", "FMUL", "FFMA", "FMNMX", "FSEL", "FSETP", "FSET", "FRND",
+          "FCHK", "F2F", "F2I", "I2F", "F2FP", "MUFU", "DADD", "DMUL", "DFMA",
+          "DSETP", "DMNMX"}
+
+
+def sass_counts(path) -> dict:
+    """SASS instructions (NOPs left out) of every kernel instance in a
+    built library (``cuobjdump -sass``, beside nvcc), keyed by mangled
+    name: all of them, and those of the floating-point pipes."""
+    import os
+
+    from sympgpr_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    dump = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    out = {}
+    for part in dump.split("Function : ")[1:]:
+        head, body = part.split("\n", 1)
+        ops = [o for o in (_opcode(ln) for ln in body.splitlines()) if o]
+        out[head.strip()] = dict(total=sum(o != "NOP" for o in ops),
+                                 fp=sum(o in FP_OPS for o in ops))
+    return out
+
+
+def sass_instructions(library: str, kernel: str) -> dict:
+    """``sass_counts`` of the kernel instance whose mangled name holds
+    ``kernel`` in the library built from ``library``'s source."""
+    from sympgpr_tpu_torch.ops import _build
+
+    for name, counts in sass_counts(_build.library_path(library)).items():
+        if kernel in name:
+            return counts
+    raise ValueError(f"no kernel {kernel!r} in {library}")
+
+
+def _opcode(line: str) -> str | None:
+    """The base opcode of one line of ``cuobjdump -sass``, or None."""
+    line = line.strip()
+    if not line.startswith("/*") or "*/" not in line[2:]:
+        return None
+    words = line.split("*/", 1)[1].split()
+    if words and words[0].startswith("@"):  # predicate
+        words = words[1:]
+    return words[0].split(".")[0].rstrip(";") if words else None
+
+
+def cov_bound(N: int, elt: int, fused: bool, fwd: bool,
+              instr_per_pair: float) -> dict:
+    """The covariance kernels' work at N0 = N: the build writes the whole
+    (2N, 2N) matrix; the general contraction reads Kbar whole, the fused
+    one the lower triangles of S's xx and yy blocks, its lower-left block
+    and alpha; each reads the points.  Pairs: all N^2, or the N (N + 1) / 2
+    on and below the diagonal for the fused contraction."""
+    pairs = N * (N + 1) // 2 if fused else N * N
+    if fwd or not fused:
+        nbytes = elt * (4 * N * N + 2 * N)
+    else:
+        nbytes = elt * (N * (N + 1) + N * N + 2 * N + 2 * N)
+    instrs = pairs * instr_per_pair
+    ms, by = bound(nbytes, 0.0, instrs=instrs)
+    return dict(bound_ms=ms, bound_by=by, bytes=nbytes, pairs=pairs,
+                instr_per_pair=instr_per_pair,
+                issue_ms=1e3 * instrs / INSTR_PER_S,
+                bytes_ms=1e3 * nbytes / HBM_BYTES_PER_S)
 
 
 def emit(phase: str, **kw) -> None:
@@ -245,8 +322,10 @@ def _max_diff(a, b) -> float:
     return float(d.nan_to_num(math.inf).max())
 
 
-def _time(fn, reps=3):
-    """Best of ``reps`` after one warm-up, in ms (CUDA events)."""
+def _time(fn, reps=3, calls=1):
+    """Best of ``reps`` after one warm-up, in ms a call (CUDA events around
+    ``calls`` calls back to back: more than one lets the wrapper's host
+    work overlap the card's for a kernel of ~0.1 ms)."""
     fn()
     sync()
     best = math.inf
@@ -254,11 +333,30 @@ def _time(fn, reps=3):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(calls):
+            fn()
         b.record()
         sync()
-        best = min(best, a.elapsed_time(b))
+        best = min(best, a.elapsed_time(b) / calls)
     return best
+
+
+def kernel_ms(fn, pattern: str, calls: int = 20) -> float | None:
+    """ms a call on the card of the kernels whose name holds ``pattern``:
+    ``torch.profiler``'s device time over ``calls`` calls after a warm-up,
+    or None where the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        sync()
+    us = sum(getattr(e, "device_time_total", 0) or
+             getattr(e, "cuda_time_total", 0)
+             for e in prof.key_averages() if pattern in e.key)
+    return us / calls / 1e3 if us else None
 
 
 def phase_kernel_vs_plain(dev, models):
@@ -333,9 +431,10 @@ def phase_throughput(dev, pm32):
 # --- the large-N path (tokamak_large) ----------------------------------------
 
 # the fit settings the BENCH_r05 tokamak_large row ended with (sig2n 1e-2
-# after its escalation, 60 steps), at its N
+# after its escalation, 60 steps), at its N; the fitted models also roll
+# out in float64 (the plain fast path, no kernel)
 LARGE = dict(n_train=4096, nm=1000, steps=60, sig2n=1e-2, aux_subsample=512,
-             rollout_batch=4096)
+             rollout_batch=4096, with_f64_rollout=True)
 # quality gates, loose because float32 sums run in another order than on
 # the TPU; the BENCH_r05 row (TPU v5e, quality numbers, not speed) beside
 GATES_LARGE = {"gd": 1e-3, "mean_Eosc": 2.5e-2, "n_lost": 1,
@@ -361,6 +460,9 @@ RTOL_SYRK_F32 = 1e-6
 # trimm: the same bound against max(|A| |tril(L)|) (no Cauchy-Schwarz)
 RTOL_TRIMM_F32 = 1e-4
 RTOL_F64 = 1e-12  # float64 instances, same formulas in another order
+# the covariance kernels (~0.1 ms) and the passes they replaced are timed
+# over this many calls back to back
+COV_CALLS = 20
 LARGE_SOURCES = {
     "cov_fwd": ("sympgpr_tpu_torch/csrc/cov_blocks.cu",
                 "sympgpr_tpu/ops/pallas_cov.py:88"),   # def _cov_tile
@@ -410,6 +512,9 @@ def phase_large_main(dev):
     for k in ("gd", "mean_Eosc", "train_mse"):
         assert out[k] <= GATES_LARGE[k], (k, out[k])
     assert out["n_lost"] <= GATES_LARGE["n_lost"], out["n_lost"]
+    # the same models in float64: the map's own energy oscillation
+    assert out["mean_Eosc_f64"] <= GATES_LARGE["mean_Eosc"], out
+    assert out["n_lost_f64"] <= GATES_LARGE["n_lost"], out
     return models, launches
 
 
@@ -520,11 +625,13 @@ def _rel_to_max(a, b) -> float:
                  / b.double().abs().max())
 
 
-def _contraction_check(X, params, sig, Kbar, got) -> dict:
+def _contraction_check(X, params, sig, Kbar64, Kbar_plain, got) -> dict:
     """L2 errors of a contraction ``got`` against the plain version in
-    float64 on the same inputs, beside the errors of the plain version in
-    the inputs' dtype, of an all-zero output and of a sum over the pairs
-    of only the first half of the points."""
+    float64 on Kbar64, beside the errors of the plain version on
+    ``Kbar_plain`` (the float32 Kbar, as the fit used to store it), of an
+    all-zero output, of a sum over the pairs of only the first half of the
+    points and of a sum over the pair tiles on and below the diagonal
+    without counting the off-diagonal ones twice."""
     from sympgpr_tpu_torch.ops import cuda_cov
 
     def plain(X, params, sig, Kbar):
@@ -532,12 +639,18 @@ def _contraction_check(X, params, sig, Kbar, got) -> dict:
                                                     sig, Kbar)
         return torch.cat([dp.double(), ds.double()[None]])
 
-    X64, p64, s64, K64 = (t.double() for t in (X, params, sig, Kbar))
-    ref = plain(X64, p64, s64, K64)
+    X64, p64, s64 = (t.double() for t in (X, params, sig))
+    ref = plain(X64, p64, s64, Kbar64)
     N = X.shape[0]
-    half = K64.clone()
+    half = Kbar64.clone()
     half[N // 2:N] = 0
     half[N + N // 2:] = 0
+    half_err = float((plain(X64, p64, s64, half) - ref).norm())
+    del half
+    tile = torch.arange(N, device=X.device) // cuda_cov.TILE
+    lower = (tile[:, None] >= tile[None, :]).double().repeat(2, 2)
+    no_x2_err = float((plain(X64, p64, s64, Kbar64 * lower) - ref).norm())
+    del lower
     got = torch.cat([got[0].double(), got[1].double()[None]])
 
     def err(v):
@@ -545,9 +658,9 @@ def _contraction_check(X, params, sig, Kbar, got) -> dict:
 
     return dict(ref=ref.tolist(), got=got.tolist(), err=err(got),
                 max_abs_err=float((got - ref).abs().max()),
-                plain_err=err(plain(X, params, sig, Kbar)),
+                plain_err=err(plain(X, params, sig, Kbar_plain)),
                 zero_err=err(torch.zeros_like(ref)),
-                half_pairs_err=err(plain(X64, p64, s64, half)),
+                half_pairs_err=half_err, lower_no_x2_err=no_x2_err,
                 ref_norm=float(ref.norm()))
 
 
@@ -582,25 +695,51 @@ def phase_large_kernels_vs_plain(dev, sgp):
     n = 2 * X.shape[0]
     res, kernels = {}, {}
 
-    K = cuda_cov.build_K_blocks("per_se", X, X, params, sig)
-    Kp = cuda_cov.build_K_blocks_reference("per_se", X, X, params, sig)
-    res["build_rel_err"] = _rel_to_max(K, Kp)
+    N, elt = X.shape[0], X.element_size()
+    # the main path's build: Ky with sig2n on its diagonal, in one launch
+    Ky = cuda_cov.build_Ky("per_se", X, params, sig, s2n)
+    Kyp = cuda_cov.build_Ky_reference("per_se", X, params, sig, s2n)
+    res["build_rel_err"] = _rel_to_max(Ky, Kyp)
+    # issue work: the floating-point instructions of the float32 per_se
+    # instances' SASS over the 16 pairs a thread takes (the pair loop is
+    # unrolled).  Addressing, loads, stores and branches issue on top, and
+    # the count holds the block's set-up, once: a lower count of the issue
+    # work per pair.  All instructions beside it (untaken paths included).
+    sass = {k: sass_instructions("cov_blocks", pattern) for k, pattern in (
+        ("fwd", "cov_fwd_kernelIfLi0EE"),
+        ("bwd_sym", "cov_bwd_kernelIfLi0ELb1E"),
+        ("bwd_general", "cov_bwd_kernelIfLi0ELb0E"))}
+    ipp = {k: v["fp"] / 16 for k, v in sass.items()}
+    res["sass_instructions"] = sass
+    fwd_b = cov_bound(N, elt, False, True, ipp["fwd"])
+
+    def build():
+        return cuda_cov.build_Ky("per_se", X, params, sig, s2n)
+
     kernels["cov_fwd"] = dict(
-        max_abs_err=float((K - Kp).abs().max()),
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(K.numel() * K.element_size(), 0.0))),
-        library_ms=None,
-        ms=_time(lambda: cuda_cov.build_K_blocks("per_se", X, X, params,
-                                                 sig)),
-        plain_ms=_time(lambda: cuda_cov.build_K_blocks_reference(
-            "per_se", X, X, params, sig)))
-    del Kp
+        max_abs_err=float((Ky - Kyp).abs().max()),
+        **{k: fwd_b[k] for k in ("bound_ms", "bound_by")},
+        library_ms=None, ms=_time(build),
+        call_ms=_time(build, calls=COV_CALLS),
+        kernel_ms=kernel_ms(build, "cov_fwd"),
+        plain_ms=_time(lambda: cuda_cov.build_Ky_reference(
+            "per_se", X, params, sig, s2n)),
+        replaced_plain_passes_ms={"eye_add": _time(
+            lambda: Ky + s2n * torch.eye(n, dtype=Ky.dtype, device=dev),
+            calls=COV_CALLS)})
+    res["build_bound"] = fwd_b
+    del Kyp
+    # the general entry (BuildK's), on the same points
+    res["build_general_rel_err"] = _rel_to_max(
+        cuda_cov.build_K_blocks("per_se", X, X, params, sig),
+        cuda_cov.build_K_blocks_reference("per_se", X, X, params, sig))
 
     # the run's fit-step intermediates at the trained hyperparameters
-    Ky = K + s2n * torch.eye(n, dtype=K.dtype, device=dev)
     L, info = torch.linalg.cholesky_ex(Ky)
     assert int(info) == 0, "Cholesky failed at the trained hyperparameters"
     alpha = torch.cholesky_solve(z[:, None], L)[:, 0]
+    where_ms = _time(lambda: torch.where(info == 0, L, math.nan),
+                     calls=COV_CALLS)
 
     # every trimm product of one tri_inv_blocked, recorded: the strided
     # views of W and L it passes, and its sign
@@ -678,20 +817,47 @@ def phase_large_kernels_vs_plain(dev, sgp):
     res["syrk_tflops"] = m ** 3 / 3 / (kernels["syrk"]["ms"] * 1e9)
     del S64, W64
 
+    # the main path's contraction: the fused entry on (S, alpha); the
+    # general entry on the float32 Kbar beside it
     Kbar = 0.5 * S - 0.5 * torch.outer(alpha, alpha)
-    got = cuda_cov.cov_param_grads("per_se", X, X, params, sig, Kbar)
-    contraction = _contraction_check(X, params, sig, Kbar, got)
+    S64, a64 = S.double(), alpha.double()
+    Kbar64 = 0.5 * S64 - 0.5 * torch.outer(a64, a64)
+    del S64
+    got = cuda_cov.cov_param_grads_sym("per_se", X, params, sig, S, alpha)
+    contraction = _contraction_check(X, params, sig, Kbar64, Kbar, got)
     contraction["bound"] = CONTRACT_NOISE_FACTOR * contraction["plain_err"]
+    general = cuda_cov.cov_param_grads("per_se", X, X, params, sig, Kbar)
+    general = torch.cat([general[0].double(), general[1].double()[None]])
+    contraction["general_err"] = float(
+        (general - torch.tensor(contraction["ref"], device=dev)).norm())
+    del Kbar64
     res["contraction"] = contraction
+    bwd_b = cov_bound(N, elt, True, False, ipp["bwd_sym"])
+
+    def contract():
+        return cuda_cov.cov_param_grads_sym("per_se", X, params, sig, S,
+                                            alpha)
+
     kernels["cov_bwd"] = dict(
         max_abs_err=contraction["max_abs_err"],
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(Kbar.numel() * Kbar.element_size(), 0.0))),
-        library_ms=None,
-        ms=_time(lambda: cuda_cov.cov_param_grads("per_se", X, X, params,
-                                                  sig, Kbar)),
-        plain_ms=_time(lambda: cuda_cov.cov_param_grads_reference(
-            "per_se", X, X, params, sig, Kbar)))
+        **{k: bwd_b[k] for k in ("bound_ms", "bound_by")},
+        library_ms=None, ms=_time(contract),
+        call_ms=_time(contract, calls=COV_CALLS),
+        kernel_ms=kernel_ms(contract, "cov_"),
+        plain_ms=_time(lambda: cuda_cov.cov_param_grads_sym_reference(
+            "per_se", X, params, sig, S, alpha)),
+        replaced_plain_passes_ms={
+            "where_L": where_ms,
+            "kbar": _time(lambda: 0.5 * S - 0.5 * torch.outer(alpha, alpha),
+                          calls=COV_CALLS)})
+    res["contraction_bound"] = bwd_b
+    def contract_general():
+        return cuda_cov.cov_param_grads("per_se", X, X, params, sig, Kbar)
+
+    res["contraction_general"] = dict(
+        ms=_time(contract_general),
+        kernel_ms=kernel_ms(contract_general, "cov_"),
+        **cov_bound(N, elt, False, False, ipp["bwd_general"]))
 
     # the fit step and its sub-layers, float32 at N=4096
     theta = torch.log10(torch.cat([params, sig[None]]))
@@ -703,7 +869,7 @@ def phase_large_kernels_vs_plain(dev, sgp):
         alpha_solve=_time(lambda: torch.cholesky_solve(z[:, None], L)),
         tri_inv=_time(lambda: triangular.tri_inv_blocked(L)),
         syrk=kernels["syrk"]["ms"], contraction=kernels["cov_bwd"]["ms"])
-    del K, Ky, L, W, S, Kbar
+    del Ky, L, W, S, Kbar
 
     # the float64 instances at a small size
     f64 = {}
@@ -717,10 +883,20 @@ def phase_large_kernels_vs_plain(dev, sgp):
     f64["build"] = _rel_to_max(
         cuda_cov.build_K_blocks("per_se", X64, X64, p64, s64),
         cuda_cov.build_K_blocks_reference("per_se", X64, X64, p64, s64))
+    f64["build_sym"] = _rel_to_max(
+        cuda_cov.build_Ky("per_se", X64, p64, s64, 0.3),
+        cuda_cov.build_Ky_reference("per_se", X64, p64, s64, 0.3))
     Kb64 = torch.randn(512, 512, generator=g, dtype=torch.float64).to(dev)
     got64 = cuda_cov.cov_param_grads("per_se", X64, X64, p64, s64, Kb64)
-    c64 = _contraction_check(X64, p64, s64, Kb64, got64)
+    c64 = _contraction_check(X64, p64, s64, Kb64, Kb64, got64)
     f64["contraction"] = c64["err"] / c64["ref_norm"]
+    S64 = Kb64 + Kb64.T
+    al64 = torch.randn(512, generator=g, dtype=torch.float64).to(dev)
+    got64 = cuda_cov.cov_param_grads_sym("per_se", X64, p64, s64, S64, al64)
+    c64 = _contraction_check(X64, p64, s64,
+                             0.5 * S64 - 0.5 * torch.outer(al64, al64),
+                             Kb64, got64)
+    f64["contraction_sym"] = c64["err"] / c64["ref_norm"]
     A64 = torch.randn(2, 256, 256, generator=g, dtype=torch.float64).to(dev)
     L64 = torch.randn(2, 256, 256, generator=g,
                       dtype=torch.float64).tril().to(dev)
@@ -737,10 +913,13 @@ def phase_large_kernels_vs_plain(dev, sgp):
     res["kernels"] = kernels
     emit("large_kernels_vs_plain", **res)
     assert res["build_rel_err"] <= RTOL_BUILD_F32, res
+    assert res["build_general_rel_err"] <= RTOL_BUILD_F32, res
     assert contraction["err"] <= contraction["bound"], contraction
-    # the bound would fail a kernel that returns zeros or sums half the pairs
-    assert min(contraction["zero_err"],
-               contraction["half_pairs_err"]) > contraction["bound"], \
+    assert contraction["general_err"] <= contraction["bound"], contraction
+    # the bound would fail a kernel that returns zeros, sums half the pairs
+    # or sums the lower tiles without counting the off-diagonal ones twice
+    assert min(contraction["zero_err"], contraction["half_pairs_err"],
+               contraction["lower_no_x2_err"]) > contraction["bound"], \
         contraction
     assert res["syrk_rel_err"] <= RTOL_SYRK_F32, res
     assert trimm_rel <= RTOL_TRIMM_F32, res

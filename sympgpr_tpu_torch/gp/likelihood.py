@@ -11,7 +11,8 @@ gradient stay finite.  Gradients come from autograd, except in
 
 Above ``cuda_cov.nll_threshold()`` training points in float32 the
 covariance comes from the hand-written build kernel
-(``ops/cuda_cov.py``), with the contraction kernel as its backward.
+(``ops/cuda_cov.py``), with the contraction kernel as its backward; the
+closed-form gradient takes the kernels' fused entries there.
 """
 
 from __future__ import annotations
@@ -77,36 +78,40 @@ def nll_value_and_grad(kernel: Kernel, params: Tensor, sig: Tensor,
         d nll / d theta = <0.5 (Ky^{-1} - alpha alpha^T), dK / d theta>
 
     with Ky^{-1} from the blocked triangular inverse and the syrk
-    (``linalg/triangular.py``) on every device, and the contraction by the
-    kernel of ``ops/cuda_cov.py`` where the build took the kernel (else by
-    autograd of ``build_K_fast``).  ``sig2n`` is fixed.
+    (``linalg/triangular.py``) on every device.  Where the build takes the
+    kernel, its fused entries of ``ops/cuda_cov.py`` write Ky with |sig2n|
+    on its diagonal, and form Kbar from S = Ky^{-1} and alpha on load in
+    the contraction, so neither the identity, K apart from Ky, nor Kbar is
+    stored; elsewhere autograd of ``build_K_fast`` contracts Kbar.
+    ``sig2n`` is fixed.
 
     A failed factorization gives NaN in value and gradient, as in the JAX
     package: ``cholesky_ex`` reports it through ``info`` and leaves a
-    finite partial factor, so the factor is replaced by NaN on the device
-    (no host sync).
+    finite partial factor, so a NaN scalar is added to the three results
+    on the device, with no host sync.
     """
-    on_kernel = cuda_cov.want_cuda_build(kernel, X)
-    if on_kernel:
-        K = cuda_cov.build_K_blocks(kernel.name, X, X, params, sig)
+    fused = cuda_cov.want_cuda_build(kernel, X)
+    if fused:
+        Ky = cuda_cov.build_Ky(kernel.name, X, params, sig, torch.abs(sig2n))
     else:
         params = params.detach().requires_grad_(True)
         sig = sig.detach().requires_grad_(True)
         with torch.enable_grad():
             K_graph = build_K_fast(kernel, X, X, params, sig)
         K = K_graph.detach()
-    Ky = K + torch.abs(sig2n) * _eye(K.shape[0], K)
+        Ky = K + torch.abs(sig2n) * _eye(K.shape[0], K)
     L, info = torch.linalg.cholesky_ex(Ky)
-    L = torch.where(info == 0, L, math.nan)
+    poison = torch.where(info == 0, 0.0, math.nan).to(Ky.dtype)
     alpha = torch.cholesky_solve(z[:, None], L)[:, 0]
     val = 0.5 * z @ alpha + torch.sum(torch.log(torch.diagonal(L)))
-    Kbar = 0.5 * spd_inverse_from_chol(L) - 0.5 * torch.outer(alpha, alpha)
-    if on_kernel:
-        dparams, dsig = cuda_cov.cov_param_grads(kernel.name, X, X, params,
-                                                 sig, Kbar)
+    S = spd_inverse_from_chol(L)
+    if fused:
+        dparams, dsig = cuda_cov.cov_param_grads_sym(kernel.name, X, params,
+                                                     sig, S, alpha)
     else:
+        Kbar = 0.5 * S - 0.5 * torch.outer(alpha, alpha)
         dparams, dsig = torch.autograd.grad(K_graph, (params, sig), Kbar)
-    return val, dparams, dsig
+    return val + poison, dparams + poison, dsig + poison
 
 
 def nll_value_and_grad_theta(kernel: Kernel, theta: Tensor, sig2n: Tensor,

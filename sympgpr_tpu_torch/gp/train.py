@@ -12,6 +12,7 @@ that stays on the device until its last step.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Callable, Sequence
 
@@ -252,18 +253,20 @@ def fit_sympgp_ondevice(
 
     hyp = 10.0 ** theta
     params, sig = hyp[:-1], hyp[-1]
-    if cuda_cov.want_cuda_build(kernel, X):
-        K = cuda_cov.build_K_blocks(kernel.name, X, X, params, sig)
+    on_kernel = cuda_cov.want_cuda_build(kernel, X)
+    if on_kernel:
+        Ky = cuda_cov.build_Ky(kernel.name, X, params, sig, s2n)
     else:
         K = build_K_fast(kernel, X, X, params, sig)
-    Ky = K + s2n * torch.eye(K.shape[0], dtype=dtype, device=dev)
+        Ky = K + s2n * torch.eye(K.shape[0], dtype=dtype, device=dev)
     L, info = torch.linalg.cholesky_ex(Ky)
-    L = torch.where(info == 0, L, float("nan"))
-    alpha = torch.cholesky_solve(z[:, None], L)[:, 0]
+    alpha = torch.where(info == 0, torch.cholesky_solve(z[:, None], L)[:, 0],
+                        math.nan)
     model = SympGP.from_alpha(kernel, params, sig, s2n, X, z, alpha)
-    # training MSE from the K just built (SympGP.training_error would
-    # rebuild it through the autodiff build_K)
-    train_mse = float(torch.mean((K @ alpha - z) ** 2))
+    # training MSE from the matrix just built (SympGP.training_error would
+    # rebuild K through the autodiff build_K); K alpha = Ky alpha - s2n alpha
+    Kalpha = Ky @ alpha - s2n * alpha if on_kernel else K @ alpha
+    train_mse = float(torch.mean((Kalpha - z) ** 2))
     timings = {"fit_s": fit_s, "fit_escalation_s": t_failed,
                "sig2n_used": float(sig2n), "jitter_escalations": escalations}
     return model, hist, train_mse, timings

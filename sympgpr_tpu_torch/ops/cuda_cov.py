@@ -2,19 +2,24 @@
 hyperparameter gradient (PyTorch port of ``sympgpr_tpu/ops/pallas_cov.py``).
 
 Two hand-written CUDA kernels (``csrc/cov_blocks.cu``) replace the Pallas
-kernels ``_cov_tile`` and ``_cov_bwd_tile``:
+kernels ``_cov_tile`` and ``_cov_bwd_tile``, each with two entries:
 
 * ``build_K_blocks`` writes the (2N, 2N0) covariance straight into its block
-  layout, one sincos and one exp per pair (two exps for ``sum_per_se``);
+  layout, one exp per pair (two for ``sum_per_se``); ``build_Ky`` runs it on
+  X0 = X with a diagonal term (``|sig2n|`` in the fit), so that one launch
+  returns Ky;
 * ``cov_param_grads`` computes <Kbar, dK/dtheta> for theta = (lx, ly, sig,
   freq) without forming dK.  The Pallas kernel takes the derivatives with
   ``jax.grad`` inside the tile; here they are written out
   (``_pair_terms``), in the plain version and again in the kernel.
+  ``cov_param_grads_sym`` is the fit's fused form: it takes S = Ky^{-1} and
+  alpha, forms Kbar = (S - alpha alpha^T) / 2 on load and, X0 being X,
+  visits half of the pairs (every pair term is even under i <-> j).
 
-``BuildK`` ties the two together as one autograd function.  Each wrapper
-runs its plain PyTorch version on CPU tensors and launches its kernel on
-CUDA tensors (or raises).  ``LAUNCHES_FWD`` and ``LAUNCHES_BWD`` count
-kernel launches.
+``BuildK`` ties the two general entries together as one autograd function.
+Each wrapper runs its plain PyTorch version on CPU tensors and launches its
+kernel on CUDA tensors (or raises).  ``LAUNCHES_FWD`` and ``LAUNCHES_BWD``
+count kernel launches of either entry.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from sympgpr_tpu_torch.ops import _build
 Tensor = torch.Tensor
 
 KINDS = {"per_se": 0, "se_se": 1, "per_se_freq": 2, "sum_per_se": 3}
-TILE = 32  # pair tile of csrc/cov_blocks.cu
+TILE = 64  # pair tile of csrc/cov_blocks.cu
 NLL_THRESHOLD = 512  # minimum N for the kernel build in the NLL
 
 LAUNCHES_FWD = 0  # launches of the build kernel in this process
@@ -125,13 +130,18 @@ def _pair_terms(kind: int, dq: Tensor, dP: Tensor, lx, ly, f,
             - gyy * kyy0 * ds)
 
 
-def _scal(name: str, params, sig, X: Tensor) -> Tensor:
-    """(lx, ly, sig, f) in X's dtype on X's device; f = 1/2 unless the
-    kernel learns its frequency."""
+def _scal(name: str, params, sig, X: Tensor, jitter=0.0) -> Tensor:
+    """(lx, ly, sig, f, jitter) in X's dtype on X's device; f = 1/2 unless
+    the kernel learns its frequency.  Numbers are filled in on the device:
+    a number copied from the host would wait for the card's queue."""
     params = torch.as_tensor(params, dtype=X.dtype, device=X.device)
     sig = torch.as_tensor(sig, dtype=X.dtype, device=X.device).reshape(())
+    if isinstance(jitter, Tensor):
+        jitter = jitter.to(dtype=X.dtype, device=X.device).reshape(())
+    else:
+        jitter = torch.full_like(sig, jitter)
     f = params[2] if name == "per_se_freq" else torch.full_like(sig, 0.5)
-    return torch.stack([params[0], params[1], sig, f])
+    return torch.stack([params[0], params[1], sig, f, jitter])
 
 
 def _pairs(X: Tensor, X0: Tensor) -> tuple[Tensor, Tensor]:
@@ -141,10 +151,17 @@ def _pairs(X: Tensor, X0: Tensor) -> tuple[Tensor, Tensor]:
 def build_K_blocks_reference(name: str, X: Tensor, X0: Tensor, params,
                              sig) -> Tensor:
     """Plain version of the build kernel: (2N, 2N0) covariance."""
-    lx, ly, s, f = _scal(name, params, sig, X)
+    lx, ly, s, f, _ = _scal(name, params, sig, X)
     dq, dP = _pairs(X, X0)
     kxx, kxy, kyy = tile_blocks(KINDS[name], dq, dP, lx, ly, s, f)
     return torch.cat([torch.cat([kxx, kxy], 1), torch.cat([kxy, kyy], 1)], 0)
+
+
+def build_Ky_reference(name: str, X: Tensor, params, sig, jitter) -> Tensor:
+    """Plain version of ``build_Ky``: K(X, X) + jitter I."""
+    K = build_K_blocks_reference(name, X, X, params, sig)
+    jitter = torch.as_tensor(jitter, dtype=K.dtype, device=K.device)
+    return K + jitter * torch.eye(K.shape[0], dtype=K.dtype, device=K.device)
 
 
 def _assemble(name: str, params: Tensor, sig: Tensor, g: Tensor):
@@ -162,13 +179,21 @@ def cov_param_grads_reference(name: str, X: Tensor, X0: Tensor, params, sig,
     """Plain version of the contraction: (dparams, dsig) =
     <Kbar, dK/dtheta> from the hand-written derivatives."""
     N, N0 = X.shape[0], X0.shape[0]
-    lx, ly, s, f = _scal(name, params, sig, X)
+    lx, ly, s, f, _ = _scal(name, params, sig, X)
     dq, dP = _pairs(X, X0)
     o = _pair_terms(KINDS[name], dq, dP, lx, ly, f, Kbar[:N, :N0],
                     Kbar[:N, N0:] + Kbar[N:, :N0], Kbar[N:, N0:])
     o0, o1, o2, o3 = (t.sum() for t in o)
     g = torch.stack([o0 * s * (-2.0 / lx), o1 * s * (-2.0 / ly), o2, o3 * s])
     return _assemble(name, params, sig, g)
+
+
+def cov_param_grads_sym_reference(name: str, X: Tensor, params, sig,
+                                  S: Tensor, alpha: Tensor):
+    """Plain version of the fused contraction: the contraction on
+    Kbar = (S - alpha alpha^T) / 2 for X0 = X."""
+    Kbar = 0.5 * S - 0.5 * torch.outer(alpha, alpha)
+    return cov_param_grads_reference(name, X, X, params, sig, Kbar)
 
 
 # --- kernels -----------------------------------------------------------------
@@ -205,56 +230,96 @@ def _kind(name: str) -> int:
 
 
 _FWD_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-_BWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def _tile_count(N: int, N0: int, sym: bool) -> int:
+    """Blocks of the contraction's grid: every pair tile, or the tiles on
+    and below the diagonal in the symmetric mode."""
+    t, t0 = -(-N // TILE), -(-N0 // TILE)
+    return t * (t + 1) // 2 if sym else t * t0
+
+
+def _fwd(name: str, X: Tensor, X0: Tensor, scal: Tensor) -> Tensor:
+    global LAUNCHES_FWD
+    _validate(X, X0, scal)
+    N, N0 = X.shape[0], X0.shape[0]
+    K = torch.empty((2 * N, 2 * N0), dtype=X.dtype, device=X.device)
+    symbol = "cov_fwd_f32" if X.dtype == torch.float32 else "cov_fwd_f64"
+    fn = _build.function("cov_blocks", symbol, _FWD_ARGS)
+    with torch.cuda.device(X.device):
+        rc = fn(_build.ptr(scal), _build.ptr(X), _build.ptr(X0),
+                _build.ptr(K), N, N0, KINDS[name], _build.stream(X.device))
+    _build.check(rc, "covariance build")
+    LAUNCHES_FWD += 1
+    return K
 
 
 def build_K_blocks(name: str, X: Tensor, X0: Tensor, params, sig) -> Tensor:
     """(2N, 2N0) covariance; the kernel on CUDA, the plain version on CPU."""
-    global LAUNCHES_FWD
-    kind = _kind(name)
+    _kind(name)
     if _device_of(X, "covariance build") == "cpu":
         return build_K_blocks_reference(name, X, X0, params, sig)
+    return _fwd(name, X, X0, _scal(name, params, sig, X))
+
+
+def build_Ky(name: str, X: Tensor, params, sig, jitter) -> Tensor:
+    """(2N, 2N) K(X, X) + jitter I in one launch of the build kernel on
+    CUDA (``jitter`` a number or a 0-d tensor, read on the device), the
+    plain version on CPU."""
+    _kind(name)
+    if _device_of(X, "covariance build") == "cpu":
+        return build_Ky_reference(name, X, params, sig, jitter)
+    return _fwd(name, X, X, _scal(name, params, sig, X, jitter))
+
+
+def _bwd(name: str, X: Tensor, X0: Tensor, params, sig, G: Tensor,
+         alpha: Tensor | None):
+    global LAUNCHES_BWD
     scal = _scal(name, params, sig, X)
-    _validate(X, X0, scal)
+    sym = alpha is not None
+    _validate(X, X0, scal, G, *((alpha,) if sym else ()))
     N, N0 = X.shape[0], X0.shape[0]
-    K = torch.empty((2 * N, 2 * N0), dtype=X.dtype, device=X.device)
-    sym = "cov_fwd_f32" if X.dtype == torch.float32 else "cov_fwd_f64"
-    fn = _build.function("cov_blocks", sym, _FWD_ARGS)
+    if G.shape != (2 * N, 2 * N0):
+        raise ValueError(f"{'S' if sym else 'Kbar'} must be "
+                         f"{(2 * N, 2 * N0)}; got {tuple(G.shape)}")
+    if sym and alpha.shape != (2 * N,):
+        raise ValueError(f"alpha must be {(2 * N,)}; got "
+                         f"{tuple(alpha.shape)}")
+    f64 = dict(dtype=torch.float64, device=X.device)
+    partial = torch.empty(4 * _tile_count(N, N0, sym), **f64)
+    out = torch.empty(4, **f64)
+    symbol = "cov_bwd_f32" if X.dtype == torch.float32 else "cov_bwd_f64"
+    fn = _build.function("cov_blocks", symbol, _BWD_ARGS)
     with torch.cuda.device(X.device):
         rc = fn(_build.ptr(scal), _build.ptr(X), _build.ptr(X0),
-                _build.ptr(K), N, N0, kind, _build.stream(X.device))
-    _build.check(rc, "covariance build")
-    LAUNCHES_FWD += 1
-    return K
+                _build.ptr(G), _build.ptr(alpha) if sym else None,
+                _build.ptr(partial), _build.ptr(out), N, N0, KINDS[name],
+                int(sym), _build.stream(X.device))
+    _build.check(rc, "covariance contraction")
+    LAUNCHES_BWD += 1
+    return _assemble(name, params, sig, out.to(X.dtype))
 
 
 def cov_param_grads(name: str, X: Tensor, X0: Tensor, params, sig,
                     Kbar: Tensor):
     """(dparams, dsig) = <Kbar, dK/dtheta> for the (2N, 2N0) build; the
     kernels on CUDA, the plain version on CPU."""
-    global LAUNCHES_BWD
-    kind = _kind(name)
+    _kind(name)
     if _device_of(X, "covariance contraction") == "cpu":
         return cov_param_grads_reference(name, X, X0, params, sig, Kbar)
-    scal = _scal(name, params, sig, X)
-    _validate(X, X0, scal, Kbar)
-    N, N0 = X.shape[0], X0.shape[0]
-    if Kbar.shape != (2 * N, 2 * N0):
-        raise ValueError(f"Kbar must be {(2 * N, 2 * N0)}; got "
-                         f"{tuple(Kbar.shape)}")
-    nblocks = -(-N // TILE) * -(-N0 // TILE)
-    f64 = dict(dtype=torch.float64, device=X.device)
-    partial = torch.empty(4 * nblocks, **f64)
-    out = torch.empty(4, **f64)
-    sym = "cov_bwd_f32" if X.dtype == torch.float32 else "cov_bwd_f64"
-    fn = _build.function("cov_blocks", sym, _BWD_ARGS)
-    with torch.cuda.device(X.device):
-        rc = fn(_build.ptr(scal), _build.ptr(X), _build.ptr(X0),
-                _build.ptr(Kbar), _build.ptr(partial), _build.ptr(out), N,
-                N0, kind, _build.stream(X.device))
-    _build.check(rc, "covariance contraction")
-    LAUNCHES_BWD += 1
-    return _assemble(name, params, sig, out.to(X.dtype))
+    return _bwd(name, X, X0, params, sig, Kbar, None)
+
+
+def cov_param_grads_sym(name: str, X: Tensor, params, sig, S: Tensor,
+                        alpha: Tensor):
+    """(dparams, dsig) = <(S - alpha alpha^T) / 2, dK(X, X)/dtheta> for a
+    symmetric S (2N, 2N) and alpha (2N,), without forming Kbar: the fused
+    kernels on CUDA (half the pairs), the plain version on CPU."""
+    _kind(name)
+    if _device_of(X, "covariance contraction") == "cpu":
+        return cov_param_grads_sym_reference(name, X, params, sig, S, alpha)
+    return _bwd(name, X, X, params, sig, S, alpha)
 
 
 class BuildK(torch.autograd.Function):

@@ -13,7 +13,11 @@ section crossings (PyTorch port of ``sympgpr_tpu/workloads/tokamak_large.py``).
    rollout (``ops.cuda_step.rollout_model``, float32);
 5. score: per-orbit energy oscillation, geometric distance of the first
    mapped section point to the float64 reference from the same ICs, lost
-   orbits, training MSE.
+   orbits, training MSE;
+6. optionally (``with_f64_rollout``) roll the same fitted models out in
+   float64 through ``maps.symplectic.apply_map`` (the fast path with the
+   early-exit Newton), which separates the map's own energy oscillation
+   from the float32 rollout's summation noise.
 
 Run: ``python -m sympgpr_tpu_torch run tokamak_large --n 4096 --device
 cuda``.
@@ -21,6 +25,7 @@ cuda``.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from typing import Any
@@ -30,8 +35,9 @@ import torch
 
 from sympgpr_tpu_torch.eval import metrics
 from sympgpr_tpu_torch.kernels import PER_SE
+from sympgpr_tpu_torch.maps.symplectic import MapConfig, apply_map
 from sympgpr_tpu_torch.systems import tokamak as tk
-from sympgpr_tpu_torch.workloads.tokamak import _sync
+from sympgpr_tpu_torch.workloads.tokamak import _sync, make_loss_fn
 
 
 def fit_sympgp_large(X: torch.Tensor, z: torch.Tensor, sig2n: float, theta0,
@@ -42,6 +48,14 @@ def fit_sympgp_large(X: torch.Tensor, z: torch.Tensor, sig2n: float, theta0,
     return fit_sympgp_ondevice(
         PER_SE, X, z, sig2n=sig2n, theta0=theta0, steps=steps, lr=lr,
         max_jitter_tries=max_jitter_tries)
+
+
+def _float64(model):
+    """A fitted SympGP or AuxGP with every tensor cast to float64."""
+    return dataclasses.replace(model, **{
+        f.name: getattr(model, f.name).to(torch.float64)
+        for f in dataclasses.fields(model)
+        if isinstance(getattr(model, f.name), torch.Tensor)})
 
 
 def _kernel_ms(fn, device: torch.device, reps: int = 3) -> float:
@@ -87,9 +101,11 @@ def run(
     float32 on CUDA, float64 on the CPU.  ``out["models"]`` holds the
     fitted (SympGP, AuxGP); the other entries are plain numbers.
     ``rollout_batch`` > 30 adds a throughput measurement of the rollout
-    kernel alone, with the test ICs tiled to that batch.  ``compensated``
-    (a TPU workaround), ``plots`` and ``with_f64_rollout`` are not ported
-    and raise.
+    kernel alone, with the test ICs tiled to that batch.
+    ``with_f64_rollout`` adds ``mean_Eosc_f64``, ``n_lost_f64`` and
+    ``t_f64_rollout_s``: the fitted models cast to float64 on the run's
+    device, rolled out for ``nm`` turns by ``apply_map``.  ``compensated``
+    (a TPU workaround) and ``plots`` are not ported and raise.
     """
     from sympgpr_tpu_torch.gp.train import fit_auxgp
     from sympgpr_tpu_torch.ops import cuda_step
@@ -100,9 +116,6 @@ def run(
             "workaround; float64 is native on the GPU)")
     if plots:
         raise NotImplementedError("plots are not ported yet")
-    if with_f64_rollout:
-        raise NotImplementedError(
-            "the float64 rollout needs the generic map path, not ported yet")
     device = torch.device(device)
     cfg = tk.TokamakConfig(N=n_train)
     dtype = torch.float32 if device.type == "cuda" else torch.float64
@@ -172,6 +185,20 @@ def run(
         gd, stdgd = metrics.geometric_distance(Qt[1], Pt[1], qr, pr)
         out["gd"] = float(np.nanmean(gd.cpu().numpy()))
         out["stdgd"] = float(stdgd)
+
+    if with_f64_rollout:
+        t0 = time.perf_counter()
+        traj64 = apply_map(
+            _float64(model), _float64(aux), q0.to(torch.float64),
+            p0.to(torch.float64), nm,
+            MapConfig(newton_tol=1e-12, newton_maxiter=20),
+            loss_pre=make_loss_fn(cfg, use_new_q=False))
+        _sync(device)
+        out["t_f64_rollout_s"] = time.perf_counter() - t0
+        H64 = tk.field_energy(cfg.field, traj64.q, traj64.p)
+        out["mean_Eosc_f64"] = float(np.nanmean(
+            metrics.energy_oscillation(H64, dim=0).cpu().numpy()))
+        out["n_lost_f64"] = int(torch.isnan(traj64.p[-1]).sum())
 
     if rollout_batch and rollout_batch > len(r0):
         reps = -(-rollout_batch // len(r0))

@@ -7,7 +7,12 @@ runs the kernels' plain versions (CPU tensors), float64.  Tolerances: the
 build at 1e-12 (the same closed forms); the contraction at rtol 1e-9
 against JAX and against autograd of the autodiff-free builds (the
 hand-written derivatives against reverse mode: sums of 2N x 2N0 terms in
-another order).
+another order).  The fit's fused entries (``build_Ky``,
+``cov_param_grads_sym``) are held against JAX on the same numpy inputs at
+the same tolerances, and the identity behind the symmetric contraction's
+halving (every pair term even under i <-> j, so the tiles on and below the
+diagonal with the off-diagonal ones counted twice give the full sum) at
+1e-12.
 """
 
 import pytest
@@ -111,6 +116,83 @@ def test_buildk_gradcheck(name):
     assert torch.autograd.gradcheck(
         lambda pp, ss: cuda_cov.BuildK.apply(name, tt(X), tt(X0), pp, ss),
         (p, s))
+
+
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("n", [40, 70])
+def test_build_Ky_matches_jax(name, n):
+    """The symmetric build with the fit's diagonal term against JAX's
+    ``build_K_pallas(X, X) + sig2n I``."""
+    X, _, params, sig, _ = _case(name, n, n)
+    s2n = 0.37
+    K_j = np.asarray(pallas_cov.build_K_pallas(
+        jkv.get_kernel(name), jnp.asarray(X), jnp.asarray(X),
+        jnp.asarray(params), jnp.asarray(sig))) + s2n * np.eye(2 * n)
+    Ky = cuda_cov.build_Ky(name, tt(X), tt(params), tt(sig), tt(s2n))
+    assert Ky.shape == (2 * n, 2 * n)
+    np.testing.assert_allclose(npy(Ky), K_j, rtol=0,
+                               atol=1e-12 * float(np.max(np.abs(K_j))))
+
+
+def _sym_case(name, n=40):
+    """Points, a symmetric S (2n, 2n) and alpha (2n,) from numpy."""
+    X, _, params, sig, _ = _case(name, n, n)
+    rng = np.random.default_rng(8)
+    A = rng.normal(size=(2 * n, 2 * n))
+    return X, params, sig, A + A.T, rng.normal(size=2 * n)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_contraction_sym_matches_jax(name):
+    """The fused contraction on (S, alpha) against JAX's contraction on
+    Kbar = (S - alpha alpha^T) / 2 formed from the same numpy inputs."""
+    X, params, sig, S, alpha = _sym_case(name)
+    Kbar = 0.5 * S - 0.5 * np.outer(alpha, alpha)
+    dp_j, ds_j = pallas_cov.cov_param_grads(
+        name, jnp.asarray(X), jnp.asarray(X), jnp.asarray(params),
+        jnp.asarray(sig), jnp.asarray(Kbar), tile=256, interpret=True)
+    dp_t, ds_t = cuda_cov.cov_param_grads_sym(name, tt(X), tt(params),
+                                              tt(sig), tt(S), tt(alpha))
+    assert dp_t.shape == (len(params),)
+    np.testing.assert_allclose(npy(dp_t), np.asarray(dp_j), rtol=1e-9,
+                               atol=1e-12)
+    np.testing.assert_allclose(float(ds_t), float(ds_j), rtol=1e-9)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_pair_terms_even_and_lower_tile_sum(name):
+    """For a symmetric Kbar and X0 = X, each pair term is even under
+    (i, j) -> (j, i), and the sum over the tiles on and below the diagonal
+    (the mixed cotangent from the lower-left block at (i, j) and (j, i),
+    off-diagonal tiles counted twice) is the full sum; without the factor 2
+    it is not.  N = 150 is no multiple of the 64-wide tile."""
+    n = 150
+    X, _, params, sig, _ = _case(name, n, n)
+    A = np.random.default_rng(9).normal(size=(2 * n, 2 * n))
+    G = tt(A + A.T)
+    lx, ly, _, f, _ = cuda_cov._scal(name, tt(params), tt(sig), tt(X))
+    dq, dP = cuda_cov._pairs(tt(X), tt(X))
+    gxx, gyy, ll = G[:n, :n], G[n:, n:], G[n:, :n]
+
+    def terms(gxy):
+        return cuda_cov._pair_terms(cuda_cov.KINDS[name], dq, dP, lx, ly, f,
+                                    gxx, gxy, gyy)
+
+    full = terms(G[:n, n:] + ll)
+    lower = terms(ll + ll.T)
+    tile = torch.arange(n) // cuda_cov.TILE
+    same, below = tile[:, None] == tile[None, :], tile[:, None] > tile[None, :]
+    w2 = same.double() + 2.0 * below.double()
+    w1 = same.double() + below.double()
+    for o_full, o_low in zip(full, lower):
+        scale = float(o_full.abs().sum())
+        np.testing.assert_allclose(npy(o_full), npy(o_full.T), rtol=0,
+                                   atol=1e-12 * float(o_full.abs().max()))
+        np.testing.assert_allclose(float((w2 * o_low).sum()),
+                                   float(o_full.sum()), rtol=0,
+                                   atol=1e-12 * scale)
+        if scale > 0:  # se_se has no frequency term
+            assert abs(float((w1 * o_low).sum() - o_full.sum())) > 1e-6 * scale
 
 
 def test_buildk_zero_data_cotangents():

@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels of the large-N fit against their plain
 PyTorch versions, on the card: covariance build and contraction
-(``ops/cuda_cov.py``), triangular matmul (``ops/cuda_trimm.py``), syrk
-(``ops/cuda_syrk.py``), and the jitter escalation of the fit through them.
+(``ops/cuda_cov.py``, with the fit's fused entries ``build_Ky`` and
+``cov_param_grads_sym``), triangular matmul (``ops/cuda_trimm.py``), syrk
+(``ops/cuda_syrk.py``), the jitter escalation of the fit through them, and
+a fit step that never makes the host wait for the card.
 
 Needs a CUDA device and nvcc; skips otherwise.  Needs no JAX:
 
@@ -13,7 +15,10 @@ it for the build (a few ulp of each transcendental) and at 1e-4 for the
 contraction and the triangular products (sums of thousands of float32
 terms in another order; the plain float32 version carries that much
 error itself).  The syrk accumulates float32 in float64, so it is held
-against the plain version in float64 at 1e-6 (one float32 rounding).
+against the plain version in float64 at 1e-6 (one float32 rounding).  The
+fused contraction on the inverse of a real GP covariance cancels almost
+all of its terms, so there it is held within 3x the error of the plain
+version on the float32 Kbar, as ``chip_smoke.py`` does.
 """
 
 import pytest
@@ -24,6 +29,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 from torch_parity import npy  # noqa: E402
 
+from sympgpr_tpu_torch.gp.likelihood import (  # noqa: E402
+    nll_value_and_grad_theta)
 from sympgpr_tpu_torch.kernels import variants as kv  # noqa: E402
 from sympgpr_tpu_torch.linalg import triangular  # noqa: E402
 from sympgpr_tpu_torch.linalg.triangular import (  # noqa: E402
@@ -90,6 +97,107 @@ def test_contraction_matches_plain(cuda, name, dtype):
     got = torch.cat([dp.double(), ds.double()[None]])
     ref = torch.cat([dp_r, ds_r[None]])
     assert _rel(got, ref) <= RTOL[dt]
+
+
+# below, at and across the 64-wide pair tile, off the 16-byte vector
+RAGGED = [1, 7, 33, 127, 129, 300, 513, 1000]
+
+
+@pytest.mark.parametrize("n", RAGGED)
+@pytest.mark.parametrize("mode", ["general", "Ky"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("name", sorted(PARAMS))
+def test_build_modes_ragged(cuda, name, dtype, mode, n):
+    """The build kernel against the plain versions, on X0 != X and as
+    ``build_Ky`` (X0 = X with a diagonal term).  The diagonal term is
+    exact: Ky(jitter) - Ky(0) is jitter on the diagonal and 0 elsewhere."""
+    dt = DTYPES[dtype]
+    tol = 1e-5 if dt == torch.float32 else 1e-12
+    X = _points(n, 1, dt, cuda)
+    p = torch.tensor(PARAMS[name], dtype=dt, device=cuda)
+    s = torch.tensor(2.5, dtype=dt, device=cuda)
+    before = cuda_cov.LAUNCHES_FWD
+    if mode == "general":
+        X0 = _points(n // 3 + 2, 2, dt, cuda)
+        K = cuda_cov.build_K_blocks(name, X, X0, p, s)
+        torch.cuda.synchronize()
+        assert cuda_cov.LAUNCHES_FWD == before + 1
+        assert _rel(K, cuda_cov.build_K_blocks_reference(name, X, X0, p,
+                                                         s)) <= tol
+        return
+    jitter = torch.tensor(0.37, dtype=dt, device=cuda)
+    Ky = cuda_cov.build_Ky(name, X, p, s, jitter)
+    Ky0 = cuda_cov.build_Ky(name, X, p, s, 0.0)
+    torch.cuda.synchronize()
+    assert cuda_cov.LAUNCHES_FWD == before + 2
+    assert _rel(Ky, cuda_cov.build_Ky_reference(name, X, p, s, jitter)) <= tol
+    diag = torch.eye(2 * n, dtype=torch.bool, device=cuda)
+    assert torch.equal(Ky[~diag], Ky0[~diag])
+    assert torch.equal(Ky.diagonal(), Ky0.diagonal() + jitter)
+
+
+@pytest.mark.parametrize("n", RAGGED)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("name", sorted(PARAMS))
+def test_contraction_sym_matches_plain(cuda, name, dtype, n):
+    """The fused contraction on a random symmetric S and alpha against its
+    plain version in float64."""
+    dt = DTYPES[dtype]
+    X = _points(n, 1, dt, cuda)
+    p = torch.tensor(PARAMS[name], dtype=dt, device=cuda)
+    s = torch.tensor(2.5, dtype=dt, device=cuda)
+    rng = np.random.default_rng(n)
+    A = rng.normal(size=(2 * n, 2 * n))
+    S = torch.tensor(A + A.T, dtype=dt, device=cuda)
+    alpha = torch.tensor(rng.normal(size=2 * n), dtype=dt, device=cuda)
+    before = cuda_cov.LAUNCHES_BWD
+    dp, ds = cuda_cov.cov_param_grads_sym(name, X, p, s, S, alpha)
+    torch.cuda.synchronize()
+    assert cuda_cov.LAUNCHES_BWD == before + 1
+    dp_r, ds_r = cuda_cov.cov_param_grads_sym_reference(
+        name, *(t.double() for t in (X, p, s, S, alpha)))
+    got = torch.cat([dp.double(), ds.double()[None]])
+    ref = torch.cat([dp_r, ds_r[None]])
+    assert _rel(got, ref) <= RTOL[dt]
+
+
+def test_contraction_sym_gp_inverse(cuda):
+    """The fused contraction on S = W^T W, W = L^{-1} of a float32 GP
+    covariance (2N = 2048, the fit's per_se hyperparameters and sig2n),
+    and alpha = Ky^{-1} z, against the plain version in float64: within
+    3x the plain float32 version's error on the materialised Kbar (L2 over
+    the three components), which an all-zero output and a sum over the
+    lower tiles without the factor 2 both exceed."""
+    X = _points(1024, 7, torch.float32, cuda)
+    p = torch.tensor([0.541, 1.391], device=cuda)
+    sig = torch.tensor(26.55, device=cuda)
+    Ky = cuda_cov.build_Ky("per_se", X, p, sig, 1e-2)
+    L, info = torch.linalg.cholesky_ex(Ky)
+    assert int(info) == 0
+    z = torch.tensor(np.random.default_rng(0).normal(size=2048) * 0.1,
+                     dtype=torch.float32, device=cuda)
+    alpha = torch.cholesky_solve(z[:, None], L)[:, 0]
+    S = spd_inverse_from_chol(L)
+    got = torch.cat([t.double().reshape(-1) for t in
+                     cuda_cov.cov_param_grads_sym("per_se", X, p, sig, S,
+                                                  alpha)])
+
+    def plain(Kbar, dtype):
+        dp, ds = cuda_cov.cov_param_grads_reference(
+            "per_se", X.to(dtype), X.to(dtype), p.to(dtype), sig.to(dtype),
+            Kbar)
+        return torch.cat([dp.double(), ds.double()[None]])
+
+    S64, a64 = S.double(), alpha.double()
+    Kbar64 = 0.5 * S64 - 0.5 * torch.outer(a64, a64)
+    ref = plain(Kbar64, torch.float64)
+    bound = 3 * float((plain(0.5 * S - 0.5 * torch.outer(alpha, alpha),
+                             torch.float32) - ref).norm())
+    tile = torch.arange(1024, device=cuda) // cuda_cov.TILE
+    lower = (tile[:, None] >= tile[None, :]).double().repeat(2, 2)
+    no_x2 = plain(Kbar64 * lower, torch.float64)
+    assert float((got - ref).norm()) <= bound
+    assert float(ref.norm()) > bound and float((no_x2 - ref).norm()) > bound
 
 
 def _view(t, pad):
@@ -210,6 +318,29 @@ def test_wrappers_refuse_mixed_devices(cuda):
         cuda_cov.build_K_blocks("per_se", X, X.cpu(),
                                 torch.ones(2, device=cuda),
                                 torch.ones((), device=cuda))
+
+
+def test_fit_step_issues_no_sync(cuda, monkeypatch):
+    """One closed-form fit step through the kernels' fused entries makes
+    the host wait for the card nowhere (a number copied to the card waited
+    for its queue once a step, which left the Adam loop bound by the
+    host)."""
+    monkeypatch.setattr(cuda_cov, "NLL_THRESHOLD", 1)
+    X = _points(64, 3, torch.float32, cuda)
+    z = torch.tensor(np.random.default_rng(1).normal(size=128) * 0.1,
+                     dtype=torch.float32, device=cuda)
+    theta = torch.log10(torch.tensor([0.9, 1.7, 2.0], device=cuda))
+    s2n = torch.tensor(1e-2, device=cuda)
+    nll_value_and_grad_theta(kv.PER_SE, theta, s2n, X, z)  # loads, handles
+    torch.cuda.synchronize()
+    before = cuda_cov.LAUNCHES_BWD
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        val, g = nll_value_and_grad_theta(kv.PER_SE, theta, s2n, X, z)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert cuda_cov.LAUNCHES_BWD == before + 1
+    assert torch.isfinite(val) and torch.isfinite(g).all()
 
 
 def test_jitter_escalation_on_card(cuda, monkeypatch):

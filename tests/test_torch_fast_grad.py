@@ -99,6 +99,17 @@ def test_failed_cholesky_gives_nan():
     assert torch.isnan(dp).all() and torch.isnan(ds)
 
 
+def test_failed_cholesky_gives_nan_kernel_path(monkeypatch):
+    """The kernels' fused path (forced, plain versions on the CPU) keeps the
+    failed factor and poisons value and gradient with a NaN scalar."""
+    monkeypatch.setattr(cuda_cov, "want_cuda_build", lambda k, X: True)
+    X, z = _case(12, 7)
+    val, dp, ds = likelihood.nll_value_and_grad(
+        kv.PER_SE, tt([0.9, 1.7]), tt(-2.0), tt(1e-6), tt(X), tt(z))
+    assert np.isnan(float(val))
+    assert torch.isnan(dp).all() and torch.isnan(ds)
+
+
 def test_fit_ondevice_matches_jax():
     X, z = _case(40, 9)
     z = z * 0.1
@@ -121,6 +132,27 @@ def test_fit_ondevice_matches_jax():
     assert tim["jitter_escalations"] == tim_j["jitter_escalations"] == 0
     assert set(tim) == {"fit_s", "fit_escalation_s", "sig2n_used",
                         "jitter_escalations"}
+
+
+def test_fit_ondevice_kernel_path(monkeypatch):
+    """The fit through the kernels' fused entries (forced, plain versions
+    on the CPU, float64) against the default path: the same history,
+    hyperparameters, alpha and train_mse (from Ky alpha - sig2n alpha)."""
+    X, z = _case(40, 9)
+    z = z * 0.1
+    ref = fit_sympgp_ondevice(kv.PER_SE, tt(X), tt(z), sig2n=1e-4, steps=5)
+    monkeypatch.setattr(cuda_cov, "want_cuda_build", lambda k, X: True)
+    calls = []
+    build = cuda_cov.build_Ky_reference
+    monkeypatch.setattr(cuda_cov, "build_Ky_reference",
+                        lambda *a: calls.append(1) or build(*a))
+    got = fit_sympgp_ondevice(kv.PER_SE, tt(X), tt(z), sig2n=1e-4, steps=5)
+    assert len(calls) == 6  # five steps and the final solve
+    np.testing.assert_allclose(got[1], ref[1], rtol=1e-9)
+    for f in ("params", "sig", "alpha"):
+        np.testing.assert_allclose(npy(getattr(got[0], f)),
+                                   npy(getattr(ref[0], f)), rtol=1e-9)
+    np.testing.assert_allclose(got[2], ref[2], rtol=1e-6)
 
 
 def test_jitter_escalation_float32():

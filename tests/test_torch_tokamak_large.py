@@ -10,7 +10,9 @@ the float64 rollout of the same model at step 1 (measured, CPU), and the
 two differ by ~1.5e-3 there.  So the rollout metrics are held as float32
 statistics: mean Eosc at rtol 1e-2 (measured 2.4e-3) and gd, a squared
 distance of ~8e-3 that a 2e-3 shift moves by tens of percent, at rtol 0.1
-(measured 2.4e-2), with the same lost set.
+(measured 2.4e-2), with the same lost set.  Both runs also roll the
+fitted models out in float64 (``with_f64_rollout``): mean Eosc at rtol
+RTOL_EOSC_F64 and the same lost count.
 """
 
 import json
@@ -35,7 +37,11 @@ from sympgpr_tpu_torch import __main__ as cli  # noqa: E402
 from sympgpr_tpu_torch.ops import cuda_step  # noqa: E402
 from sympgpr_tpu_torch.workloads import tokamak_large as twl  # noqa: E402
 
-ARGS = dict(n_train=160, nm=12, steps=25, aux_subsample=80, sig2n=1e-4)
+ARGS = dict(n_train=160, nm=12, steps=25, aux_subsample=80, sig2n=1e-4,
+            with_f64_rollout=True)
+# float64 rollouts of models that agree at ~1e-11 (the fits' float64
+# arithmetic in another order): mean Eosc measured 7.0e-12 apart
+RTOL_EOSC_F64 = 1e-9
 
 
 @pytest.fixture(scope="module")
@@ -122,8 +128,15 @@ def test_jax_model_rolls_out_in_port():
         np.testing.assert_allclose(npy(Pt[i]), np.asarray(Pj[i]), atol=2e-5)
 
 
-@pytest.mark.parametrize("option", [
-    {"compensated": True}, {"plots": "out"}, {"with_f64_rollout": True}])
+def test_f64_rollout_matches_jax(port_run, jax_run):
+    t, j = port_run, jax_run
+    assert t["n_lost_f64"] == j["n_lost_f64"] == 0
+    assert np.isfinite(t["mean_Eosc_f64"]) and t["t_f64_rollout_s"] > 0
+    np.testing.assert_allclose(t["mean_Eosc_f64"], j["mean_Eosc_f64"],
+                               rtol=RTOL_EOSC_F64)
+
+
+@pytest.mark.parametrize("option", [{"compensated": True}, {"plots": "out"}])
 def test_options_not_ported_raise(option):
     with pytest.raises(NotImplementedError):
         twl.run(n_train=8, nm=2, steps=1, device=CPU, **option)
