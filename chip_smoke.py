@@ -2,10 +2,15 @@
 """GPU smoke run of the PyTorch port (``sympgpr_tpu_torch``).
 
 Builds every hand-written CUDA kernel from the checkout's sources (one nvcc
-per source, all at once) and drives two main paths on the card:
+per source, all at once) and drives three main paths on the card:
 
 * the tokamak workload at the reference configuration (N=80 training
   crossings, 30 test orbits, nm=1000) through the rollout kernel;
+* the Split tokamak (``tokamak_split``: N=70 crossings for each of 4
+  sub-maps of a quarter turn, nph=100, CMA-ES fits, 30 orbits over 4000
+  sub-map steps) through the rollout kernel's sub-map cycling and its loss
+  check at the new q; the same fitted models also roll out in float64 on
+  the plain fast path (``apply_map_split``);
 * the large-N tokamak workload (``tokamak_large``: N=4096 real crossings,
   60 Adam steps over the closed-form NLL gradient in float32, 30 orbits
   over nm=1000, and the same models rolled out in float64 by the plain
@@ -21,7 +26,7 @@ covariance kernels (~0.1 ms, where one call's time holds its wrapper's
 host work) also print their time over 20 calls back to back (``call_ms``)
 and ``torch.profiler``'s device time of their kernels (``kernel_ms``, null
 where the profiler records none).  The rollout kernel is also timed at
-the four float32 shapes of the main paths (``rollout_shapes``: the bench batch
+the four float32 shapes of the single-map paths (``rollout_shapes``: the bench batch
 32768 x 1000 and the reference 30 x 1000 at N=80, ``tokamak_large``'s
 30 x 1000 apply and 4096 x 256 batch at N=4096) and held against its plain
 version in float64 at N=4096.
@@ -60,6 +65,14 @@ GATE_MEDIAN_GD = 2e-2
 GATE_LOST = 10
 # RESULTS.md row "05 tokamak (N=80, nm=1000)", float64 on the CPU
 RESULTS_ROW = {"train_err": 1.9e-20, "Eosc": 8.2e-3, "gd": 2.5e-4, "lost": 0}
+# the Split tokamak: tests/test_workloads.py test_tokamak_split (training
+# error) and test_tokamak_split_pallas_backend (median gd) at the reference
+# size; RESULTS.md row "05 tokamak split (nphmap=4, nm=4000)", float64 on
+# the CPU, for the float64 rollout of the same models
+NM_SPLIT = 4000
+GATE_TRAIN_ERR_SPLIT = 1e-10
+RESULTS_ROW_SPLIT = {"train_err": 3.5e-21, "Eosc": 9.3e-3, "gd": 3.0e-5,
+                     "lost": 0}
 
 # kernel vs plain version on the card
 ATOL_F64 = 1e-9  # every step of 100, float64: ~1e-15 per step on regular orbits
@@ -110,16 +123,18 @@ def bound(nbytes: float, flops: float, fp64: bool = False,
 
 
 def rollout_bound(B: int, nm: int, ns: int, nas: int, elt: int,
-                  iters: int = 5) -> dict:
-    """The rollout's work for B orbits over nm steps: each column read
-    once, Q and P written once; per orbit-step (1 + iters) exps per
-    training point (A B = exp(-(s + dP^2 / 2 ly^2)) once per Newton
-    iteration and once for the q update) and one per aux point."""
+                  iters: int = 5, n_maps: int = 1) -> dict:
+    """The rollout's work for B orbits over nm steps: each column (of each
+    of ``n_maps`` sub-maps) read once, Q and P written once; per
+    orbit-step, with one sub-map of ``ns`` training and ``nas`` aux
+    points, (1 + iters) exps per training point (A B = exp(-(s + dP^2 / 2
+    ly^2)) once per Newton iteration and once for the q update) and one
+    per aux point."""
     steps = (nm - 1) * B
     exps = steps * ((1 + iters) * ns + nas)
     flops = steps * (ns * (FLOP_SETUP + iters * FLOP_NEWTON + FLOP_Q)
                      + nas * FLOP_AUX + FLOP_ORBIT)
-    nbytes = elt * ((4 * ns + 3 * nas) + 2 * B + 2 * nm * B)
+    nbytes = elt * (n_maps * (4 * ns + 3 * nas) + 2 * B + 2 * nm * B)
     ms, by = bound(nbytes, flops, elt == 8, 0.0 if elt == 8 else exps)
     return dict(bound_ms=ms, bound_by=by, exps=exps, flops=flops,
                 bytes=nbytes)
@@ -297,10 +312,10 @@ def phase_main_generic(dev):
         assert 0.5 <= res[k] / ref <= 2.0, (k, res[k], ref)
 
 
-def _ics(dev, dtype, reps=1):
+def _ics(dev, dtype, reps=1, cfg=None):
     from sympgpr_tpu_torch.systems import tokamak as tk
 
-    (r0, th0), _ = tk.test_initial_conditions(tk.TokamakConfig())
+    (r0, th0), _ = tk.test_initial_conditions(cfg or tk.TokamakConfig())
     pth0, q0 = tk.ics_to_pth(np.tile(r0, reps), np.tile(th0, reps), dev)
     return q0.to(dtype).contiguous(), (pth0 * 1e2).to(dtype).contiguous()
 
@@ -322,11 +337,13 @@ def _max_diff(a, b) -> float:
     return float(d.nan_to_num(math.inf).max())
 
 
-def _time(fn, reps=3, calls=1):
+def _time(fn, reps=3, calls=1, warmup=True):
     """Best of ``reps`` after one warm-up, in ms a call (CUDA events around
     ``calls`` calls back to back: more than one lets the wrapper's host
-    work overlap the card's for a kernel of ~0.1 ms)."""
-    fn()
+    work overlap the card's for a kernel of ~0.1 ms).  ``warmup=False``
+    where the caller has just run ``fn``."""
+    if warmup:
+        fn()
     sync()
     best = math.inf
     for _ in range(reps):
@@ -363,7 +380,7 @@ def phase_kernel_vs_plain(dev, models):
     """The kernel against rollout_reference on the phase-3 models."""
     from sympgpr_tpu_torch.ops import cuda_step as cs
 
-    sgp, aux = models
+    (sgp,), (aux,) = models
     sd, ad = sgp.for_deployment(1e-3), aux.for_deployment(1e-3)
 
     pm64 = cs.pack_models(sd, ad, mod_q=2 * math.pi, dtype=torch.float64)
@@ -426,6 +443,211 @@ def phase_throughput(dev, pm32):
                lost=int(torch.isnan(Pk[-1]).sum()), finite=finite)
     emit("throughput", **res)
     assert finite, res
+
+
+# --- the Split tokamak (tokamak_split) ---------------------------------------
+
+
+def _split_cfg():
+    from sympgpr_tpu_torch.__main__ import SPLIT
+    from sympgpr_tpu_torch.systems import tokamak as tk
+
+    return tk.TokamakConfig(**SPLIT, nm=NM_SPLIT)
+
+
+def phase_split_main(dev):
+    """tokamak_split through the kernel backend: four CMA-ES fitted
+    sub-maps, 30 orbits over 4000 sub-map steps in float32, the sub-maps
+    cycled inside the kernel, the loss checked at the new q.  The NLL
+    evaluations of the fits are counted (the symplectic GPs' and the aux
+    GPs')."""
+    from sympgpr_tpu_torch.gp import likelihood
+    from sympgpr_tpu_torch.ops import cuda_step
+    from sympgpr_tpu_torch.systems import tokamak as tk
+    from sympgpr_tpu_torch.workloads import tokamak as wl
+
+    cfg = _split_cfg()
+    evals = {"nll": 0, "nll_reg": 0}
+    nlls = {k: getattr(likelihood, k) for k in evals}
+
+    def counted(name):
+        def fn(*a, **k):
+            evals[name] += 1
+            return nlls[name](*a, **k)
+        return fn
+
+    for k in evals:
+        setattr(likelihood, k, counted(k))
+    cuda_step.LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        out = wl.run(cfg, optimizer="cmaes", backend="kernel",
+                     with_reference=False, device=dev)
+        sync()
+    finally:
+        for k, fn in nlls.items():
+            setattr(likelihood, k, fn)
+    wall = time.perf_counter() - t0
+    launches = cuda_step.LAUNCHES
+    (r0, th0), _ = tk.test_initial_conditions(cfg)
+    t0 = time.perf_counter()
+    out.update(wl.one_turn_gd(cfg, out["traj"], r0, th0, dev))
+    t_gd = time.perf_counter() - t0
+    res = dict(training_error=out["training_error"],
+               mean_gd=float(np.nanmean(out["gd"])),
+               median_gd=float(np.nanmedian(out["gd"])),
+               mean_Eosc=float(np.nanmean(out["Eosc"])),
+               n_lost=out["n_lost"], t_train=out["t_train"],
+               nfev_sympl=out["nfev_sympl"], nll_evaluations=evals,
+               ms_per_nll_evaluation=1e3 * out["t_train"]
+               / sum(evals.values()), t_apply=out["t_apply"],
+               wall_s=wall, t_one_turn_reference=t_gd, launches=launches,
+               hyps=[h.tolist() for h in out["hyps"]], sigs=out["sigs"],
+               dtype=str(out["traj"].q.dtype),
+               shape=list(out["traj"].q.shape))
+    emit("split_main", **res)
+    assert launches >= 1, "the Split path launched no rollout kernel"
+    assert res["training_error"] < GATE_TRAIN_ERR_SPLIT, res
+    assert res["median_gd"] < GATE_MEDIAN_GD, res
+    assert res["n_lost"] <= GATE_LOST, res
+    assert res["shape"] == [NM_SPLIT, cfg.Ntest], res
+    assert out["traj"].q.device.type == "cuda"
+    return out, launches
+
+
+def phase_split_generic(dev, models):
+    """The same fitted sub-maps rolled out in float64 by apply_map_split
+    (the fast path, masked early-exit Newton) on the card, held to the
+    RESULTS.md row within 2x."""
+    from sympgpr_tpu_torch.systems import tokamak as tk
+    from sympgpr_tpu_torch.workloads import tokamak as wl
+
+    cfg = _split_cfg()
+    sgps, auxes = models
+    (r0, th0), _ = tk.test_initial_conditions(cfg)
+    pth0, Q0 = tk.ics_to_pth(r0, th0, dev)
+    t0 = time.perf_counter()
+    traj = wl.rollout(cfg, sgps, auxes, Q0, pth0 * cfg.momentum_scale,
+                      NM_SPLIT, "generic")
+    sync()
+    t_apply = time.perf_counter() - t0
+    gd = wl.one_turn_gd(cfg, traj, r0, th0, dev)["gd"]
+    res = dict(mean_gd=float(np.nanmean(gd)),
+               mean_Eosc=float(np.nanmean(wl.section_eosc(cfg, traj))),
+               n_lost=int(torch.isnan(traj.p[-1]).sum()), t_apply=t_apply,
+               dtype=str(traj.q.dtype), results_row=RESULTS_ROW_SPLIT)
+    emit("split_generic", **res)
+    assert traj.q.dtype == torch.float64 and traj.q.device.type == "cuda"
+    assert res["n_lost"] == RESULTS_ROW_SPLIT["lost"], res
+    for k, ref in (("mean_gd", RESULTS_ROW_SPLIT["gd"]),
+                   ("mean_Eosc", RESULTS_ROW_SPLIT["Eosc"])):
+        assert 0.5 <= res[k] / ref <= 2.0, (k, res[k], ref)
+
+
+def _first_lost(P) -> torch.Tensor:
+    """The row at which each orbit turns NaN (the row count if never)."""
+    nan = torch.isnan(P)
+    return torch.where(nan.any(0), nan.int().argmax(0), P.shape[0])
+
+
+def phase_split_kernel_vs_plain(dev, models):
+    """The kernel against rollout_reference on the Split packed models:
+    float64 over 100 steps, float32 at steps 1-2 and the statistics over
+    the 4000 steps, as kernel_vs_plain; then two wrong kernels the gates
+    must fail: sub-map 0 on every step, and the loss checked at the old q
+    on ICs near the loss boundary, where the two checks lose orbits at
+    other steps."""
+    from sympgpr_tpu_torch.ops import cuda_step as cs
+    from sympgpr_tpu_torch.systems import tokamak as tk
+
+    cfg = _split_cfg()
+    sgps, auxes = models
+    sd = [s.for_deployment(1e-3) for s in sgps]
+    ad = [a.for_deployment(1e-3) for a in auxes]
+    kw = dict(loss_check=True, loss_at_new_q=True)
+
+    pm64 = cs.pack_models_split(sd, ad, mod_q=2 * math.pi,
+                                dtype=torch.float64)
+    q0, p0 = _ics(dev, torch.float64, cfg=cfg)
+    Qk, Pk = cs.rollout_in_kernel(pm64, q0, p0, 100, **kw)
+    sync()
+    Qr, Pr = cs.rollout_reference(pm64, q0, p0, 100, **kw)
+    err64 = max(_max_diff(Qk, Qr), _max_diff(Pk, Pr))
+    nan_same64 = bool(torch.equal(torch.isnan(Pk), torch.isnan(Pr)))
+    # wrong kernel 1: sub-map 0 on every step
+    first = cs.pack_models_split([sd[0]] * 4, [ad[0]] * 4,
+                                 mod_q=2 * math.pi, dtype=torch.float64)
+    Qw, Pw = cs.rollout_in_kernel(first, q0, p0, 100, **kw)
+    sync()
+    submap0_err64 = max(_max_diff(Qw, Qr), _max_diff(Pw, Pr))
+
+    pm32 = cs.pack_models_split(sd, ad, mod_q=2 * math.pi)
+    q0, p0 = _ics(dev, torch.float32, cfg=cfg)
+    Qk, Pk = cs.rollout_in_kernel(pm32, q0, p0, NM_SPLIT, **kw)
+    sync()
+    Qr, Pr = cs.rollout_reference(pm32, q0, p0, NM_SPLIT, **kw)
+    plain_ms = _time(lambda: cs.rollout_reference(pm32, q0, p0, NM_SPLIT,
+                                                  **kw), reps=1,
+                     warmup=False)
+    err32 = max(_max_diff(Qk[1:3], Qr[1:3]), _max_diff(Pk[1:3], Pr[1:3]))
+    # the energy on the sections (every 4th row), the lost orbits at the end
+    eosc_k = _eosc_lost(Qk[::4], Pk[::4])[0]
+    eosc_r = _eosc_lost(Qr[::4], Pr[::4])[0]
+    lost_k, lost_r = (int(torch.isnan(P[-1]).sum()) for P in (Pk, Pr))
+    Qw, Pw = cs.rollout_in_kernel(
+        cs.pack_models_split([sd[0]] * 4, [ad[0]] * 4, mod_q=2 * math.pi),
+        q0, p0, 3, **kw)
+    sync()
+    submap0_err32 = max(_max_diff(Qw[1:3], Qr[1:3]),
+                        _max_diff(Pw[1:3], Pr[1:3]))
+    ms = _time(lambda: cs.rollout_in_kernel(pm32, q0, p0, NM_SPLIT, **kw))
+    b = rollout_bound(30, NM_SPLIT, pm32.ns, pm32.nas, 4, n_maps=4)
+
+    # wrong kernel 2: the loss at the old q, on ICs near r = 0.5 spread
+    # over the angle (float64, 100 steps)
+    r0 = np.repeat(np.linspace(0.44, 0.5, 8), 8)
+    th0 = np.tile(np.linspace(0.0, 2 * math.pi, 8, endpoint=False), 8)
+    pth, qb = tk.ics_to_pth(r0, th0, dev)
+    pb = (pth * cfg.momentum_scale).contiguous()
+    Qn, Pn = cs.rollout_in_kernel(pm64, qb, pb, 100, **kw)
+    Qo, Po = cs.rollout_in_kernel(pm64, qb, pb, 100, loss_check=True)
+    sync()
+    Qbr, Pbr = cs.rollout_reference(pm64, qb, pb, 100, **kw)
+    lost_new, lost_old = _first_lost(Pn), _first_lost(Po)
+    boundary = dict(
+        err=max(_max_diff(Qn, Qbr), _max_diff(Pn, Pbr)),
+        nan_pattern_equal=bool(torch.equal(torch.isnan(Pn),
+                                           torch.isnan(Pbr))),
+        lost_new_q=int((lost_new < 100).sum()),
+        lost_old_q=int((lost_old < 100).sum()),
+        orbits_lost_at_other_steps=int((lost_new != lost_old).sum()),
+        old_q_err=max(_max_diff(Qo, Qbr), _max_diff(Po, Pbr)),
+        old_q_nan_pattern_equal=bool(torch.equal(torch.isnan(Po),
+                                                 torch.isnan(Pbr))))
+    res = dict(f64_max_abs_err_100_steps=err64, f64_atol=ATOL_F64,
+               f64_nan_pattern_equal=nan_same64,
+               f32_max_abs_err_steps_1_2=err32, f32_atol=ATOL_F32,
+               f32_mean_Eosc_kernel=eosc_k, f32_mean_Eosc_plain=eosc_r,
+               f32_lost_kernel=lost_k, f32_lost_plain=lost_r,
+               submap0_f64_err=submap0_err64, submap0_f32_err=submap0_err32,
+               boundary=boundary, ns=pm32.ns, nas=pm32.nas,
+               ms_30x4000_f32=ms, plain_ms_30x4000_f32=plain_ms,
+               geometry=cs.launch_geometry(30, pm32.ns, pm32.nas,
+                                           torch.float32,
+                                           n_maps=4).__dict__,
+               bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+               bound_share=b["bound_ms"] / ms)
+    emit("split_kernel_vs_plain", **res)
+    assert nan_same64 and err64 <= ATOL_F64, res
+    assert err32 <= ATOL_F32, res
+    assert abs(eosc_k - eosc_r) <= EOSC_RTOL_F32 * eosc_r, res
+    assert abs(lost_k - lost_r) <= LOST_SLACK_F32, res
+    assert boundary["nan_pattern_equal"] and boundary["err"] <= ATOL_F64, res
+    # the gates fail both wrong kernels
+    assert submap0_err64 > ATOL_F64 and submap0_err32 > ATOL_F32, res
+    assert boundary["orbits_lost_at_other_steps"] > 0, res
+    assert not boundary["old_q_nan_pattern_equal"], res
+    return err32, ms, plain_ms
 
 
 # --- the large-N path (tokamak_large) ----------------------------------------
@@ -968,6 +1190,10 @@ def main() -> None:
     phase_main_generic(dev)
     pm32, err32, ms, plain_ms = phase_kernel_vs_plain(dev, out["models"])
     phase_throughput(dev, pm32)
+    split, split_launches = phase_split_main(dev)
+    phase_split_generic(dev, split["models"])
+    phase_split_kernel_vs_plain(dev, split["models"])
+    del split
     large_models, large_launches = phase_large_main(dev)
     large = phase_large_kernels_vs_plain(dev, large_models[0])
     phase_rollout_shapes(dev, pm32, large_models)
@@ -975,7 +1201,7 @@ def main() -> None:
     phase_escalation(dev)
     b = rollout_bound(30, NM, pm32.ns, pm32.nas, 4)
     rows = [{"name": "rollout_step", "route": "cuda", "source": KERNEL_SOURCE,
-             "replaces": REPLACES, "launches": launches,
+             "replaces": REPLACES, "launches": launches + split_launches,
              "max_abs_err": err32, "ms": ms, "plain_ms": plain_ms,
              "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
              "library_ms": None}]

@@ -3,6 +3,8 @@
   python -m sympgpr_tpu_torch list
   python -m sympgpr_tpu_torch run tokamak --nm 1000 --device cuda
   python -m sympgpr_tpu_torch run tokamak_kernel --device cuda
+  python -m sympgpr_tpu_torch run tokamak_split --device cuda
+  python -m sympgpr_tpu_torch run tokamak_split_kernel --device cuda
   python -m sympgpr_tpu_torch run tokamak_large --n 4096 --steps 40 --device cuda
 
 ``--device`` defaults to ``cuda`` and fails when no GPU is present; pass
@@ -17,10 +19,17 @@ import sys
 
 import numpy as np
 
+# the Split tokamak's configuration (the JAX package's ``tokamak_split``)
+SPLIT = dict(N=70, nphmap=4, nph=100, r_scale=0.38, qminmap=0.16,
+             qmaxmap=0.31)
 WORKLOADS = {
-    # name -> backend of workloads.tokamak.run (None: its own run function)
-    "tokamak": "generic",
-    "tokamak_kernel": "kernel",
+    # name -> (backend of workloads.tokamak.run, TokamakConfig fields, nm,
+    # optimizer), or None: its own run function
+    "tokamak": ("generic", {}, 1000, "lbfgs"),
+    "tokamak_kernel": ("kernel", {}, 1000, "lbfgs"),
+    # the Split tokamak optimizes with CMA-ES
+    "tokamak_split": ("generic", SPLIT, 4000, "cmaes"),
+    "tokamak_split_kernel": ("kernel", SPLIT, 4000, "cmaes"),
     "tokamak_large": None,
 }
 
@@ -63,10 +72,11 @@ def cmd_run(args):
     from sympgpr_tpu_torch.systems.tokamak import TokamakConfig
     from sympgpr_tpu_torch.workloads import tokamak
 
-    cfg = TokamakConfig(nm=args.nm or 1000)
-    out = tokamak.run(cfg, optimizer=args.optimizer or "lbfgs",
-                      backend=WORKLOADS[args.workload],
-                      with_reference=args.with_reference, device=device)
+    backend, fields, nm, optimizer = WORKLOADS[args.workload]
+    cfg = TokamakConfig(**fields, nm=args.nm or nm)
+    out = tokamak.run(cfg, optimizer=args.optimizer or optimizer,
+                      backend=backend, with_reference=args.with_reference,
+                      device=device)
     if "gd" not in out:
         (r0, th0), _ = tk.test_initial_conditions(cfg)
         out.update(tokamak.one_turn_gd(cfg, out["traj"], r0, th0, device))
@@ -86,7 +96,7 @@ def main(argv=None):
     p_run.add_argument("workload")
     p_run.add_argument("--nm", type=int, default=None,
                        help="number of map applications")
-    p_run.add_argument("--optimizer", default=None, choices=("lbfgs",),
+    p_run.add_argument("--optimizer", default=None, choices=("lbfgs", "cmaes"),
                        help="hyperparameter optimizer")
     p_run.add_argument("--n", type=int, default=None,
                        help="training-set size (tokamak_large)")

@@ -2,12 +2,14 @@
 // iteration of the learned map for a batch of orbits in one launch.
 //
 // Replaces sympgpr_tpu/ops/pallas_step.py::_rollout_kernel (with its helpers
-// _sfactors and _tokamak_lost) in the configuration the tokamak workload
-// runs: implicit map, product kernels per_se / se_se / per_se_freq (kinds
+// _sfactors and _tokamak_lost) in the configurations the tokamak workloads
+// run: implicit map, product kernels per_se / se_se / per_se_freq (kinds
 // 0, 1, 2), aux-GP warm start, `iters` fixed Newton iterations that keep P
-// where an update is non-finite, the tokamak loss check at the old q,
-// the mod_q wrap, NaN poisoning of lost orbits, single map.  Row 0 of the
-// trajectory is the initial condition.  The plain PyTorch version is
+// where an update is non-finite, the tokamak loss check at the old q
+// (single map) or at the new q (Split), the mod_q wrap, NaN poisoning of
+// lost orbits, one map or Split cycling over M sub-maps (row i is made by
+// sub-map (i - 1) mod M).  Row 0 of the trajectory is the initial
+// condition.  The plain PyTorch version is
 // sympgpr_tpu_torch/ops/cuda_step.py::rollout_reference.
 //
 // What bounds it: the exps on the SFUs and the FP32 instructions around
@@ -48,7 +50,8 @@
 //    lane's pairs.  Each compute thread's own row of shared memory holds
 //    the rest of its slice, a record per point: sin/cos of h(u) (h(x) =
 //    f x, f = 1/2 for per_se; u itself for se_se), uP and a1, loaded once
-//    per launch, and the step's s and c2.  sin/cos of h(u) - h(q) come
+//    per launch (for each of a Split model's sub-maps), and the step's s
+//    and c2.  sin/cos of h(u) - h(q) come
 //    from the angle-difference identity with sin/cos of h(q) taken once
 //    per step.  a0 is read from device memory (L1-resident) once per step.
 //    No training column is staged per block: a block holds its lanes'
@@ -80,6 +83,26 @@
 //    so no compute warp waits for the solve.  (float32's 512-lane team's
 //    block has no room for the extra warp; its first thread solves
 //    instead, on the step's chain.)
+//    With the loss check at the new q (the Split tokamak) the staged angle
+//    is the step's new Q, after the mod_q wrap; the rows it poisons are the
+//    same.
+//  * Split cycling and the loss check at the new q run in the Split
+//    instances (a template flag); the one-map instances keep their
+//    launch-time constants in registers, no branch on the sub-map and no
+//    choice of the staged angle (with that choice the float64 one-map
+//    instance of 96 registers spilled 60 bytes against 36, and its bench
+//    batch ran 4 % slower).  A one-map model checked at the new q runs a
+//    Split instance with M = 1.  In the Split instances:
+//    each lane holds every sub-map's launch fields (a1, sin/cos h(u), uP:
+//    4 values a point and sub-map) in its row, the aux tables of all
+//    sub-maps sit side by side, and a table of derived constants per
+//    sub-map (1 / (2 lx^2), ...) is formed once per launch.  A step reads
+//    its sub-map's constants (a broadcast), offsets into the records and
+//    aux table, and reads a0 from the sub-map's block in device memory.
+//    c0 and c1 in registers are formed once per step as with one map, so
+//    the register count does not grow with M; the row does, by 4 M values
+//    a point.  Sub-maps of different sizes share one stride: their
+//    padding carries zero alpha.
 //  * Every compute thread stays in the time loop to its end: the ragged
 //    batch edge computes a copy of the last orbit and writes nothing, and a
 //    lost orbit runs on as NaN.  So full-warp shuffles and the barriers are
@@ -98,6 +121,7 @@
 namespace {
 
 constexpr int kSolverThreads = 32;  // the loss-solve warp of a block
+constexpr int kNScal = 12;          // scal's row of each sub-map
 constexpr int kPMax = 16;           // training points a lane holds
 constexpr int kMaxTeam = 1024;      // lanes per orbit
 // The kernel's two kinds: per_se is per_se_freq at frequency 1/2 (the same
@@ -132,13 +156,20 @@ struct Shape {
 };
 
 // A compute thread's row of shared memory: per point of its slice a record
-// of kFields values, c2 (per step), a1, sin h(u) (se_se: u), cos h(u), uP
-// (per launch) and s (per step); records as many as the lane's points,
-// rounded up to whole pairs, plus one value, so the row length is odd and a
-// warp's rows fall in distinct banks.
+// of c2 (per step), then for each sub-map a1, sin h(u) (se_se: u), cos
+// h(u), uP (per launch), then s (per step): kFields values with one map,
+// kMapFields more for each further sub-map; records as many as the lane's
+// points, rounded up to whole pairs, plus one value, so the row length is
+// odd and a warp's rows fall in distinct banks.
 constexpr int kFields = 6;
-__host__ __device__ constexpr int row_length(int npad) {
-  return kFields * npad + 1;
+constexpr int kMapFields = 4;
+// a sub-map's fields in a record, from its first: a1, sin/cos h(u), uP
+constexpr int kC3 = 0, kSU = 1, kCU = 2, kUP = 3;
+__host__ __device__ constexpr int record_fields(int n_maps) {
+  return kFields + kMapFields * (n_maps - 1);
+}
+__host__ __device__ constexpr int row_length(int npad, int fields) {
+  return fields * npad + 1;
 }
 
 __device__ __forceinline__ float dexp(float x) { return expf(x); }
@@ -211,9 +242,38 @@ __device__ __forceinline__ bool tokamak_lost(T P, T th) {
   return (r > T(0.5)) || (P < T(0));
 }
 
+// A sub-map's constants, formed from its row of scal: 1 / (2 lx^2) and
+// k1, k2 of the GP's q-factors, the aux GP's 1 / (2 alx^2) and 1 / (2
+// aly^2), 1 / ly^2 and its half, delta, mod_q and the two frequencies.
+template <typename T>
+struct MapConsts {
+  T i2, ai2, ily2, hily2, haly2, k1, k2, delta, mod_q, freq, afreq;
+};
+static_assert(sizeof(MapConsts<double>) <= kNScal * sizeof(double),
+              "a sub-map's constants fit its row of the table");
+
+template <int KIND, typename T>
+__device__ __forceinline__ MapConsts<T> map_consts(const T* sc, int half,
+                                                   int ahalf) {
+  MapConsts<T> c;
+  const T lx = sc[0], ly = sc[1], alx = sc[2], aly = sc[3];
+  c.delta = sc[4];
+  c.mod_q = sc[5];
+  c.freq = half ? T(0.5) : sc[6];
+  c.afreq = ahalf ? T(0.5) : sc[7];
+  c.i2 = T(0.5) / (lx * lx);
+  c.ai2 = T(0.5) / (alx * alx);
+  c.ily2 = T(1) / (ly * ly);
+  c.hily2 = T(0.5) * c.ily2;
+  c.haly2 = T(0.5) / (aly * aly);
+  qconstants<KIND>(c.i2, c.freq, &c.k1, &c.k2);
+  return c;
+}
+
 template <typename T>
 struct Args {
-  const T* scal;  // lx, ly, alx, aly, delta, mod_q, freq, afreq (as packed)
+  const T* scal;  // (n_maps, kNScal): lx, ly, alx, aly, delta, mod_q, freq,
+                  // afreq (as packed)
   const T* uq;
   const T* uP;
   const T* a0;    // sig * alpha_dq
@@ -225,21 +285,31 @@ struct Args {
   const T* p0;
   T* Q;  // (nm, B)
   T* P;  // (nm, B)
-  int B, ns, nas, nm, iters, loss_check;
+  int B, ns, nas, n_maps, nm, iters, loss_check, loss_at_new_q;
   int team, log_team;  // lanes per orbit (a power of two) and its log2
   int np;              // training points per lane, ceil(ns / team)
   int npad;            // np rounded up to whole pairs: a row's records
+  int fields;          // values in a record, record_fields(n_maps)
   int compute;         // compute threads of a block (the solver warp follows)
   int half, ahalf;     // per_se (frequency 1/2) for the GP, the aux GP
 };
 
-// Shared memory of a block, in elements of T: the aux table (4 columns),
-// two slots of per-warp partial sums (2 values each), two slots of the
-// loss-check staging (q, P and the flag per team) and a row per compute
-// thread.
-constexpr size_t smem_elems(int nas, int compute, int teams, int npad) {
-  return 4 * size_t(nas) + 4 * size_t(compute / 32) + 6 * size_t(teams) +
-         size_t(row_length(npad)) * size_t(compute);
+// Shared memory of a block, in elements of T: the aux tables (4 columns of
+// nas values for each sub-map), two slots of per-warp partial sums (2
+// values each), two slots of the loss-check staging (q, P and the flag per
+// team), in a Split instance a row of kNScal constants for each sub-map,
+// and a row per compute thread.
+constexpr size_t smem_elems(int nas, int compute, int teams, int npad,
+                            int n_maps, bool split) {
+  return 4 * size_t(n_maps) * size_t(nas) + 4 * size_t(compute / 32) +
+         6 * size_t(teams) + (split ? size_t(kNScal) * n_maps : 0) +
+         size_t(row_length(npad, record_fields(n_maps))) * size_t(compute);
+}
+
+// The Split instance runs sub-map cycling and the loss check at the new q.
+__host__ __device__ constexpr bool split_instance(int n_maps,
+                                                  int loss_at_new_q) {
+  return n_maps > 1 || loss_at_new_q;
 }
 
 // Team sum of N values.  Teams of up to 32 lanes: xor butterfly inside the
@@ -282,7 +352,7 @@ __device__ __forceinline__ void team_sum(T (&v)[N], const Args<T>& a,
   }
 }
 
-template <typename T, int KIND, int AUX_KIND, typename S>
+template <typename T, int KIND, int AUX_KIND, bool SPLIT, typename S>
 __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
     rollout_kernel(Args<T> a) {
   constexpr int PM = S::kPM;
@@ -292,40 +362,46 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
   const int ns = a.ns, nas = a.nas, team = a.team, np = a.np;
   static_assert(PM % kPairs == 0, "a lane's slice is whole pair groups");
   static_assert(PM <= kPMax, "a lane holds at most kPMax points");
+  const int maps = SPLIT ? a.n_maps : 1;
+  const int F = SPLIT ? a.fields : kFields;  // values in a record
   const int nc = a.compute;
   const int teams = nc >> a.log_team;  // orbits of this block
-  T* s_xs = sm;          // sin h(u) of the aux points (se_se: u)
-  T* s_xc = s_xs + nas;  // cos h(u)
-  T* s_xp = s_xc + nas;
-  T* s_xa = s_xp + nas;
-  T* s_red = s_xa + nas;             // [2][compute warps][2]
+  T* s_xs = sm;                 // sin h(u) of the aux points (se_se: u)
+  T* s_xc = s_xs + maps * nas;  // cos h(u)
+  T* s_xp = s_xc + maps * nas;
+  T* s_xa = s_xp + maps * nas;
+  T* s_red = s_xa + maps * nas;      // [2][compute warps][2]
   T* s_lq = s_red + 4 * (nc >> 5);   // [2][teams] each
   T* s_lP = s_lq + 2 * teams;
   T* s_lost = s_lP + 2 * teams;
-  T* s_rows = s_lost + 2 * teams;    // [compute][row_length(npad)]
+  T* s_cst = s_lost + 2 * teams;     // SPLIT: [maps][kNScal]
+  T* s_rows = s_cst + (SPLIT ? kNScal * maps : 0);  // [compute][row]
 
-  const T lx = a.scal[0], ly = a.scal[1], alx = a.scal[2], aly = a.scal[3];
-  const T delta = a.scal[4], mod_q = a.scal[5];
-  const T freq = a.half ? T(0.5) : a.scal[6];
-  const T afreq = a.ahalf ? T(0.5) : a.scal[7];
-  const T i2 = T(0.5) / (lx * lx);
-  const T ai2 = T(0.5) / (alx * alx);
-  const T ily2 = T(1) / (ly * ly);
-  const T hily2 = T(0.5) * ily2;
-  const T haly2 = T(0.5) / (aly * aly);
-  T k1, k2;
-  qconstants<KIND>(i2, freq, &k1, &k2);
+  // the sub-map's constants: with one map the launch's, in registers
+  MapConsts<T> c;
+  if constexpr (SPLIT) {
+    for (int j = threadIdx.x; j < maps; j += blockDim.x)
+      *reinterpret_cast<MapConsts<T>*>(s_cst + kNScal * j) =
+          map_consts<KIND>(a.scal + kNScal * j, a.half, a.ahalf);
+  } else {
+    c = map_consts<KIND>(a.scal, a.half, a.ahalf);
+  }
 
-  for (int n = threadIdx.x; n < nas; n += blockDim.x) {
+  for (int n = threadIdx.x; n < maps * nas; n += blockDim.x) {
     const T u = a.auxq[n];
     T su = u, cu = T(1);
-    if (AUX_KIND != kSeSe) dsincos(afreq * u, &su, &cu);
+    if (AUX_KIND != kSeSe) {
+      const T afreq =
+          SPLIT ? (a.ahalf ? T(0.5) : a.scal[kNScal * (n / nas) + 7])
+                : c.afreq;
+      dsincos(afreq * u, &su, &cu);
+    }
     s_xs[n] = su;
     s_xc[n] = cu;
     s_xp[n] = a.auxp[n];
     s_xa[n] = a.auxa[n];
   }
-  __syncthreads();  // the aux table is complete
+  __syncthreads();  // the aux tables (and the constants) are complete
 
   const bool own_solver = int(blockDim.x) == nc;  // no solver warp
   if (threadIdx.x >= nc) {
@@ -348,29 +424,33 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
   const int bt = blockIdx.x * teams + t;
   const bool active = bt < a.B;
   const int b = active ? bt : a.B - 1;           // the edge copies an orbit
-  // the lane's columns from point n = lane on, with stride `team`
-  const T* l_a0 = a.a0 + lane;
   const int last = ns - lane;  // k * team < last: the lane holds point k
   const int naux = lane < nas ? (nas - lane + team - 1) >> a.log_team : 0;
-  // point k's record: rec[kFields * k + field]
-  T* rec = s_rows + threadIdx.x * row_length(a.npad);
-  constexpr int C2 = 0, C3 = 1, SU = 2, CU = 3, UP = 4, SA = 5;  // C3: a1,
-  // c3 without its factor A; SU, CU: sin/cos h(u) (se_se: u); SA: s of A
+  // point k's record: rec[F * k + field]; c2 first, s last, and sub-map
+  // m's fields from 1 + kMapFields * m on
+  T* rec = s_rows + threadIdx.x * row_length(a.npad, F);
+  constexpr int C2 = 0;
+  const int SA = F - 1;  // s of A
 
-  // the lane's training slice into its row, once per launch; points past
-  // the slice are zero and add nothing
+  // each sub-map's training slice into the row, once per launch; points
+  // past the slice are zero and add nothing
+  for (int m = 0; m < maps; ++m) {
+    const T freq =
+        SPLIT ? (a.half ? T(0.5) : a.scal[kNScal * m + 6]) : c.freq;
+    const int g0 = m * ns + lane;
 #pragma unroll
-  for (int k = 0; k < PM; ++k) {
-    if (k < a.npad) {
-      const bool in = k < np && k * team < last;
-      const T u = in ? a.uq[lane + k * team] : T(0);
-      T sk = u, ck = T(1);
-      if (KIND != kSeSe) dsincos(freq * u, &sk, &ck);
-      T* r = rec + kFields * k;
-      r[SU] = sk;
-      r[CU] = ck;
-      r[UP] = in ? a.uP[lane + k * team] : T(0);
-      r[C3] = in ? a.a1[lane + k * team] : T(0);
+    for (int k = 0; k < PM; ++k) {
+      if (k < a.npad) {
+        const bool in = k < np && k * team < last;
+        const T u = in ? a.uq[g0 + k * team] : T(0);
+        T sk = u, ck = T(1);
+        if (KIND != kSeSe) dsincos(freq * u, &sk, &ck);
+        T* r = rec + F * k + 1 + kMapFields * m;
+        r[kSU] = sk;
+        r[kCU] = ck;
+        r[kUP] = in ? a.uP[g0 + k * team] : T(0);
+        r[kC3] = in ? a.a1[g0 + k * team] : T(0);
+      }
     }
   }
 
@@ -382,30 +462,41 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
     a.P[b] = p;
   }
   int parity = 0;
+  int m = 0;  // the sub-map of this step, (i - 1) mod n_maps
 
   for (int i = 1; i < a.nm; ++i) {
+    if constexpr (SPLIT)
+      c = *reinterpret_cast<const MapConsts<T>*>(s_cst + kNScal * m);
+    const int mo = SPLIT ? 1 + kMapFields * m : 1;  // its record fields
+    const T* xs = s_xs + (SPLIT ? m * nas : 0);
+    const T* xc = s_xc + (SPLIT ? m * nas : 0);
+    const T* xp = s_xp + (SPLIT ? m * nas : 0);
+    const T* xa = s_xa + (SPLIT ? m * nas : 0);
+    // the lane's a0 from point n = lane on, with stride `team`
+    const T* l_a0 = a.a0 + (SPLIT ? m * ns : 0) + lane;
+
     T sq = T(0), cq = T(1), asq = T(0), acq = T(1);
-    if (KIND != kSeSe) dsincos(freq * q, &sq, &cq);
+    if (KIND != kSeSe) dsincos(c.freq * q, &sq, &cq);
     if (AUX_KIND != kSeSe) {
-      if (AUX_KIND == KIND && afreq == freq) {
+      if (AUX_KIND == KIND && c.afreq == c.freq) {
         asq = sq;
         acq = cq;
       } else {
-        dsincos(afreq * q, &asq, &acq);
+        dsincos(c.afreq * q, &asq, &acq);
       }
     }
 
     // aux-GP warm start; its q- and p-factors share one exp
     T mean[1] = {T(0)};
     for (int j = 0, n = lane; j < naux; ++j, n += team) {
-      const T d = s_xs[n] - q;  // se_se only
-      const T sh = s_xs[n] * acq - s_xc[n] * asq;
-      const T sa = qfactors<AUX_KIND>(d, sh, T(0), ai2, T(0), T(0)).s;
-      const T dpa = s_xp[n] - p;
-      mean[0] += s_xa[n] * dexp(-(sa + dpa * dpa * haly2));
+      const T d = xs[n] - q;  // se_se only
+      const T sh = xs[n] * acq - xc[n] * asq;
+      const T sa = qfactors<AUX_KIND>(d, sh, T(0), c.ai2, T(0), T(0)).s;
+      const T dpa = xp[n] - p;
+      mean[0] += xa[n] * dexp(-(sa + dpa * dpa * c.haly2));
     }
     team_sum(mean, a, s_red, parity);
-    T P = mean[0] + delta * p;
+    T P = mean[0] + c.delta * p;
 
     // Newton-invariant factors of the lane's pairs, once per step: c0, c1
     // in registers for the Newton loop, s and c2 in the thread's row.  A =
@@ -418,16 +509,16 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
       if (k0 < np) {
 #pragma unroll
         for (int k = k0; k < k0 + kPairs; ++k) {
-          T* r = rec + kFields * k;
-          const T sk = r[SU], ck = r[CU];
+          T* r = rec + F * k;
+          const T sk = r[mo + kSU], ck = r[mo + kCU];
           const T d = sk - q;  // se_se only
           const T sh = sk * cq - ck * sq;
           const T ch = ck * cq + sk * sq;
           const T w0 = k * team < last ? __ldg(l_a0 + k * team) : T(0);
-          const QF<T> g = qfactors<KIND>(d, sh, ch, i2, k1, k2);
-          const T g1 = -g.sp * ily2;
+          const QF<T> g = qfactors<KIND>(d, sh, ch, c.i2, c.k1, c.k2);
+          const T g1 = -g.sp * c.ily2;
           c0[k] = w0 * (g.spp - g.sp * g.sp);
-          c1[k] = r[C3] * g1;
+          c1[k] = r[mo + kC3] * g1;
           r[C2] = w0 * g1;
           r[SA] = g.s;
         }
@@ -442,12 +533,13 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
         if (k0 < np) {
 #pragma unroll
           for (int k = k0; k < k0 + kPairs; ++k) {
-            const T* r = rec + kFields * k;
-            const T dP = r[UP] - P;
+            const T* r = rec + F * k;
+            const T dP = r[mo + kUP] - P;
             const T dP2 = dP * dP;
-            const T E = dexp(-(r[SA] + dP2 * hily2));  // A(dq) * B(dP)
+            const T E = dexp(-(r[SA] + dP2 * c.hily2));  // A(dq) * B(dP)
             v[0] += (c0[k] + c1[k] * dP) * E;
-            v[1] += (c0[k] * dP * ily2 + c1[k] * (dP2 * ily2 - T(1))) * E;
+            v[1] += (c0[k] * dP * c.ily2 + c1[k] * (dP2 * c.ily2 - T(1))) *
+                    E;
           }
         }
       }
@@ -463,27 +555,31 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
       if (k0 < np) {
 #pragma unroll
         for (int k = k0; k < k0 + kPairs; ++k) {
-          const T* r = rec + kFields * k;
-          const T dP = r[UP] - P;
+          const T* r = rec + F * k;
+          const T dP = r[mo + kUP] - P;
           const T dP2 = dP * dP;
-          const T E = dexp(-(r[SA] + dP2 * hily2));
-          const T h = ily2 - dP2 * ily2 * ily2;
-          dq[0] += (r[C2] * dP + r[C3] * h) * E;
+          const T E = dexp(-(r[SA] + dP2 * c.hily2));
+          const T h = c.ily2 - dP2 * c.ily2 * c.ily2;
+          dq[0] += (r[C2] * dP + r[mo + kC3] * h) * E;
         }
       }
     }
     team_sum(dq, a, s_red, parity);
     T Q = q + dq[0];
-    if (mod_q > T(0)) Q = Q - dfloor(Q / mod_q) * mod_q;
+    if (c.mod_q > T(0)) Q = Q - dfloor(Q / c.mod_q) * c.mod_q;
     if (!isfinite(P)) Q = nan;
 
     const size_t row = size_t(i) * B + b;
     if (a.loss_check) {
-      // Hand (q, P) of this step to the solver warp; take back the flag of
-      // the previous step.  A lost orbit's row, written a step before, is
-      // written again as NaN, and the step that ran on after it is NaN too.
+      // Hand (q, P) of this step (the new Q with the check at the new q) to
+      // the solver warp; take back the flag of the previous step.  A lost
+      // orbit's row, written a step before, is written again as NaN, and
+      // the step that ran on after it is NaN too.
       if (lane == 0) {
-        s_lq[(i & 1) * teams + t] = q;
+        if constexpr (SPLIT)
+          s_lq[(i & 1) * teams + t] = a.loss_at_new_q ? Q : q;
+        else
+          s_lq[(i & 1) * teams + t] = q;
         s_lP[(i & 1) * teams + t] = P;
       }
       __syncthreads();
@@ -502,6 +598,7 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
     }
     q = Q;
     p = P;
+    if constexpr (SPLIT) m = m + 1 == maps ? 0 : m + 1;
   }
 
   if (a.loss_check) {  // the flag of the last step
@@ -517,10 +614,13 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
 template <typename T, int KIND, int AUX_KIND, typename S>
 cudaError_t launch_shape(const Args<T>& a, int teams, int threads,
                          size_t smem, cudaStream_t stream) {
+  const bool split = split_instance(a.n_maps, a.loss_at_new_q);
   if (threads > S::kThreads || a.np > S::kPM ||
-      smem < smem_elems(a.nas, a.compute, teams, a.npad) * sizeof(T))
+      smem < smem_elems(a.nas, a.compute, teams, a.npad, a.n_maps, split) *
+                 sizeof(T))
     return cudaErrorInvalidValue;
-  auto kern = rollout_kernel<T, KIND, AUX_KIND, S>;
+  auto kern = split ? rollout_kernel<T, KIND, AUX_KIND, true, S>
+                    : rollout_kernel<T, KIND, AUX_KIND, false, S>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e == cudaSuccess)  // all of the SM's 256 KB for shared memory
@@ -579,10 +679,10 @@ cudaError_t dispatch_aux(int aux_kind, const Args<T>& a, const int (&inst)[3],
 template <typename T>
 int run(const T* scal, const T* uq, const T* uP, const T* a0, const T* a1,
         const T* auxq, const T* auxp, const T* auxa, const T* q0,
-        const T* p0, T* Q, T* P, int B, int ns, int nas, int nm, int iters,
-        int kind, int aux_kind, int loss_check, int team, int teams,
-        int threads, int smem_bytes, int inst_points, int inst_threads,
-        int inst_blocks, void* stream) {
+        const T* p0, T* Q, T* P, int B, int ns, int nas, int n_maps, int nm,
+        int iters, int kind, int aux_kind, int loss_check, int loss_at_new_q,
+        int team, int teams, int threads, int smem_bytes, int inst_points,
+        int inst_threads, int inst_blocks, void* stream) {
   // the layout comes from ops/cuda_step.py::launch_geometry; refuse any the
   // kernel cannot run (a block is its teams' lanes, then a solver warp or
   // not)
@@ -592,13 +692,13 @@ int run(const T* scal, const T* uq, const T* uP, const T* a0, const T* a1,
   const int np = (ns + team - 1) / team;
   constexpr int kPairs = Lane<T>::kPairs;
   if (team < 1 || team > kMaxTeam || (1 << log_team) != team ||
-      teams < 1 || compute % 32 != 0 || np > kPMax || B < 1 ||
+      teams < 1 || compute % 32 != 0 || np > kPMax || B < 1 || n_maps < 1 ||
       (threads != compute && threads != compute + kSolverThreads))
     return int(cudaErrorInvalidValue);
   const Args<T> a{scal, uq, uP, a0, a1, auxq, auxp, auxa, q0, p0, Q, P,
-                  B, ns, nas, nm, iters, loss_check, team, log_team, np,
-                  (np + kPairs - 1) / kPairs * kPairs, compute, kind == 0,
-                  aux_kind == 0};
+                  B, ns, nas, n_maps, nm, iters, loss_check, loss_at_new_q,
+                  team, log_team, np, (np + kPairs - 1) / kPairs * kPairs,
+                  record_fields(n_maps), compute, kind == 0, aux_kind == 0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = size_t(smem_bytes);
   const int inst[3] = {inst_points, inst_threads, inst_blocks};
@@ -615,7 +715,10 @@ int run(const T* scal, const T* uq, const T* uP, const T* a0, const T* a1,
 
 }  // namespace
 
-// Plain C interface for ctypes.  Every pointer is a device pointer.  The
+// Plain C interface for ctypes.  Every pointer is a device pointer; the
+// model columns hold `n_maps` sub-maps of `ns` training and `nas` aux
+// points each, scal one row of kNScal per sub-map.  The loss check (when
+// on) takes the old q, or the new q with `loss_at_new_q`.  The
 // layout comes from ops/cuda_step.py::launch_geometry: `team` lanes per
 // orbit, `teams` orbits per block, a block of `threads` threads (team *
 // teams compute threads and, where the block has room, one solver warp),
@@ -626,25 +729,26 @@ extern "C" int rollout_step_f32(
     const float* scal, const float* uq, const float* uP, const float* a0,
     const float* a1, const float* auxq, const float* auxp, const float* auxa,
     const float* q0, const float* p0, float* Q, float* P, int B, int ns,
-    int nas, int nm, int iters, int kind, int aux_kind, int loss_check,
-    int team, int teams, int threads, int smem_bytes, int inst_points,
-    int inst_threads, int inst_blocks, void* stream) {
+    int nas, int n_maps, int nm, int iters, int kind, int aux_kind,
+    int loss_check, int loss_at_new_q, int team, int teams, int threads,
+    int smem_bytes, int inst_points, int inst_threads, int inst_blocks,
+    void* stream) {
   return run<float>(scal, uq, uP, a0, a1, auxq, auxp, auxa, q0, p0, Q, P, B,
-                    ns, nas, nm, iters, kind, aux_kind, loss_check, team,
-                    teams, threads, smem_bytes, inst_points, inst_threads,
-                    inst_blocks, stream);
+                    ns, nas, n_maps, nm, iters, kind, aux_kind, loss_check,
+                    loss_at_new_q, team, teams, threads, smem_bytes,
+                    inst_points, inst_threads, inst_blocks, stream);
 }
 
 extern "C" int rollout_step_f64(
     const double* scal, const double* uq, const double* uP, const double* a0,
     const double* a1, const double* auxq, const double* auxp,
     const double* auxa, const double* q0, const double* p0, double* Q,
-    double* P, int B, int ns, int nas, int nm, int iters, int kind,
-    int aux_kind, int loss_check, int team, int teams, int threads,
-    int smem_bytes, int inst_points, int inst_threads, int inst_blocks,
-    void* stream) {
+    double* P, int B, int ns, int nas, int n_maps, int nm, int iters,
+    int kind, int aux_kind, int loss_check, int loss_at_new_q, int team,
+    int teams, int threads, int smem_bytes, int inst_points,
+    int inst_threads, int inst_blocks, void* stream) {
   return run<double>(scal, uq, uP, a0, a1, auxq, auxp, auxa, q0, p0, Q, P, B,
-                     ns, nas, nm, iters, kind, aux_kind, loss_check, team,
-                     teams, threads, smem_bytes, inst_points, inst_threads,
-                     inst_blocks, stream);
+                     ns, nas, n_maps, nm, iters, kind, aux_kind, loss_check,
+                     loss_at_new_q, team, teams, threads, smem_bytes,
+                     inst_points, inst_threads, inst_blocks, stream);
 }

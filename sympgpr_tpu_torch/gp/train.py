@@ -1,8 +1,10 @@
-"""Hyperparameter inference (PyTorch port of the L-BFGS part and the
-large-N on-device fit of ``sympgpr_tpu/gp/train.py``).
+"""Hyperparameter inference (PyTorch port of the L-BFGS and CMA-ES parts
+and the large-N on-device fit of ``sympgpr_tpu/gp/train.py``).
 
 scipy L-BFGS-B runs on the host over a torch value-and-grad of the NLL;
-the linear algebra runs on the device the training data lives on.  The
+CMA-ES runs its strategy on the host in numpy and evaluates each
+generation's members one after another on the data's device.  The linear
+algebra runs on the device the training data lives on.  The
 hyperparameter transforms are the reference's two styles: ``log10``
 (``hyp = 10**theta``) and ``linear`` (``hyp = |theta|``).
 ``fit_sympgp_ondevice`` is an Adam loop over the closed-form NLL gradient
@@ -116,6 +118,118 @@ def minimize_lbfgs(
                      message=str(res.message))
 
 
+def minimize_cmaes(
+    objective: Callable[[Tensor], Tensor],
+    x0: Sequence[float],
+    *,
+    device: torch.device | str,
+    dtype: torch.dtype = torch.float64,
+    sigma0: float = 0.5,
+    popsize: int | None = None,
+    maxiter: int = 200,
+    restarts: int = 0,
+    seed: int = 0,
+    tol_fun: float = 1e-11,
+) -> FitResult:
+    """CMA-ES (Hansen's standard (mu/mu_w, lambda) strategy), IPOP restarts
+    doubling the population.
+
+    The strategy's arithmetic and its ``np.random.default_rng(seed)``
+    stream are the JAX package's line for line, so the two searches draw
+    the same members and follow the same path wherever their objective
+    values agree.  The JAX package evaluates a generation in one vmapped
+    call; here each member is one objective call on ``device``.
+    """
+    x0 = np.asarray(x0, dtype=np.float64)
+    n = x0.size
+
+    def batch_obj(arx: np.ndarray) -> np.ndarray:
+        with torch.no_grad():
+            return np.array([float(objective(torch.tensor(
+                x, dtype=dtype, device=device))) for x in arx])
+
+    best_x, best_f, total_fev = x0.copy(), np.inf, 0
+    lam0 = popsize or (4 + int(3 * np.log(n)))
+    rng = np.random.default_rng(seed)
+
+    for restart in range(restarts + 1):
+        lam = lam0 * (2**restart)
+        mu = lam // 2
+        w = np.log(mu + 0.5) - np.log(np.arange(1, mu + 1))
+        w /= w.sum()
+        mueff = 1.0 / np.sum(w**2)
+        cc = (4 + mueff / n) / (n + 4 + 2 * mueff / n)
+        cs = (mueff + 2) / (n + mueff + 5)
+        c1 = 2 / ((n + 1.3) ** 2 + mueff)
+        cmu = min(1 - c1, 2 * (mueff - 2 + 1 / mueff) / ((n + 2) ** 2 + mueff))
+        damps = 1 + 2 * max(0.0, np.sqrt((mueff - 1) / (n + 1)) - 1) + cs
+        chiN = np.sqrt(n) * (1 - 1 / (4 * n) + 1 / (21 * n**2))
+
+        xmean = x0.copy() if restart == 0 else best_x.copy()
+        sigma = sigma0
+        pc = np.zeros(n)
+        ps = np.zeros(n)
+        B = np.eye(n)
+        D = np.ones(n)
+        C = np.eye(n)
+        eigeneval = 0
+        counteval = 0
+
+        prev_best = np.inf
+        for it in range(maxiter):
+            arz = rng.standard_normal((lam, n))
+            ary = arz @ (B * D).T
+            arx = xmean + sigma * ary
+            f = batch_obj(arx)
+            f = np.nan_to_num(f, nan=_BIG, posinf=_BIG)
+            counteval += lam
+            total_fev += lam
+            idx = np.argsort(f)
+            if f[idx[0]] < best_f:
+                best_f = float(f[idx[0]])
+                best_x = arx[idx[0]].copy()
+
+            xold = xmean
+            xmean = w @ arx[idx[:mu]]
+            zmean = w @ arz[idx[:mu]]
+
+            ps = (1 - cs) * ps + np.sqrt(cs * (2 - cs) * mueff) * (B @ zmean)
+            hsig = (
+                np.linalg.norm(ps)
+                / np.sqrt(1 - (1 - cs) ** (2 * counteval / lam)) / chiN
+                < 1.4 + 2 / (n + 1)
+            )
+            pc = (1 - cc) * pc + hsig * np.sqrt(cc * (2 - cc) * mueff) * (
+                (xmean - xold) / sigma
+            )
+            artmp = (arx[idx[:mu]] - xold) / sigma
+            C = (
+                (1 - c1 - cmu) * C
+                + c1 * (np.outer(pc, pc) + (1 - hsig) * cc * (2 - cc) * C)
+                + cmu * (artmp.T * w) @ artmp
+            )
+            sigma *= np.exp((cs / damps) * (np.linalg.norm(ps) / chiN - 1))
+
+            if counteval - eigeneval > lam / (c1 + cmu) / n / 10:
+                eigeneval = counteval
+                C = np.triu(C) + np.triu(C, 1).T
+                Dsq, B = np.linalg.eigh(C)
+                D = np.sqrt(np.maximum(Dsq, 1e-20))
+
+            if abs(prev_best - f[idx[0]]) < tol_fun and it > 10:
+                break
+            prev_best = f[idx[0]]
+
+    return FitResult(theta=best_x, fun=best_f, success=np.isfinite(best_f),
+                     nfev=total_fev, message="cma-es")
+
+
+_MINIMIZERS = {
+    "lbfgs": minimize_lbfgs,
+    "cmaes": minimize_cmaes,
+}
+
+
 def _hyp(res: FitResult, transform: str, fixed_sig, like: Tensor):
     theta = torch.as_tensor(res.theta, dtype=like.dtype, device=like.device)
     hyp = _apply_transform(theta, transform)
@@ -124,10 +238,17 @@ def _hyp(res: FitResult, transform: str, fixed_sig, like: Tensor):
     return hyp, fixed_sig
 
 
-def _check_optimizer(optimizer: str) -> None:
-    if optimizer != "lbfgs":
+def _minimize(optimizer: str, objective, x0, X: Tensor, bounds, tol,
+              opt_kwargs: dict) -> FitResult:
+    """Run the named optimizer on the training data's device and dtype."""
+    if optimizer not in _MINIMIZERS:
         raise NotImplementedError(
-            f"optimizer {optimizer!r} is not ported yet; use 'lbfgs'")
+            f"optimizer {optimizer!r} is not ported yet; use one of "
+            f"{sorted(_MINIMIZERS)}")
+    if optimizer == "lbfgs":
+        opt_kwargs = dict(opt_kwargs, bounds=bounds, tol=tol)
+    return _MINIMIZERS[optimizer](objective, x0, device=X.device,
+                                  dtype=X.dtype, **opt_kwargs)
 
 
 def fit_sympgp(
@@ -145,11 +266,9 @@ def fit_sympgp(
     **opt_kwargs,
 ) -> tuple[SympGP, FitResult]:
     """Fit the symplectic GP: optimize hyp, then build alpha/L."""
-    _check_optimizer(optimizer)
     objective = make_objective(likelihood.nll, kernel, X, z, sig2n,
                                transform=transform, fixed_sig=fixed_sig)
-    res = minimize_lbfgs(objective, x0, device=X.device, dtype=X.dtype,
-                         bounds=bounds, tol=tol, **opt_kwargs)
+    res = _minimize(optimizer, objective, x0, X, bounds, tol, opt_kwargs)
     params, sig = _hyp(res, transform, fixed_sig, X)
     return SympGP.create(kernel, params, sig, sig2n, X, z), res
 
@@ -174,14 +293,12 @@ def fit_auxgp(
     ``nll_sig2n`` lets the optimization use another noise level than the
     final solve (the tokamak workload optimizes at 1e-8, solves at 1e-14).
     """
-    _check_optimizer(optimizer)
     objective = make_objective(
         likelihood.nll_reg, kernel, X, z,
         sig2n if nll_sig2n is None else nll_sig2n,
         transform=transform, fixed_sig=fixed_sig,
     )
-    res = minimize_lbfgs(objective, x0, device=X.device, dtype=X.dtype,
-                         bounds=bounds, **opt_kwargs)
+    res = _minimize(optimizer, objective, x0, X, bounds, None, opt_kwargs)
     params, sig = _hyp(res, transform, fixed_sig, X)
     return AuxGP.create(kernel, params, sig, sig2n, X, z, delta=delta), res
 

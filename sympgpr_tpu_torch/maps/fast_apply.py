@@ -170,6 +170,58 @@ def newton_P(co: StepCoeffs, p: Tensor, P0: Tensor, tol: float,
     return P
 
 
+def map_step(
+    sgp: SympGP,
+    aux: AuxGP | None,
+    q: Tensor,
+    p: Tensor,
+    i: int,
+    cfg: MapConfig,
+    loss_pre: LossFn | None = None,
+    loss_post: LossFn | None = None,
+    fixed_iters: bool = False,
+) -> tuple[Tensor, Tensor, Tensor]:
+    """One step of the learned map from (q, p) at step index ``i``.
+
+    Returns (Q, P, dP): the new point (P wrapped by ``mod_p``; NaN where
+    an orbit is lost) and the unwrapped momentum increment.
+    """
+    is_sum = sgp.kernel.name in _FAST_SUM_KERNELS
+    if is_sum:
+        co = None
+        P = p - p_explicit_sum(sgp, q)
+    elif cfg.explicit:
+        co = precompute_step(sgp, q)
+        pGP, _ = p_value_slope(co, p)
+        P = p - pGP
+    else:
+        co = precompute_step(sgp, q)
+        P0 = aux_guess(aux, q, p)
+        P = newton_P(co, p, P0, cfg.newton_tol, cfg.newton_maxiter,
+                     fixed_iters)
+    if loss_pre is not None:
+        P = torch.where(loss_pre(q, q, P, i), torch.nan, P)
+    dPc = P - p
+    Pw = torch.remainder(P, cfg.mod_p) if cfg.mod_p is not None else P
+    dq = q_update_sum(sgp, Pw) if is_sum else q_update(co, Pw)
+    Q = dq + q
+    if cfg.mod_q is not None:
+        Q = torch.remainder(Q, cfg.mod_q)
+    if loss_post is not None:
+        lost = loss_post(q, Q, Pw, i)
+        Pw = torch.where(lost, torch.nan, Pw)
+        Q = torch.where(lost, torch.nan, Q)
+    Q = torch.where(torch.isnan(Pw), torch.nan, Q)
+    return Q, Pw, dPc
+
+
+def _check_fast(sgp: SympGP, cfg: MapConfig) -> None:
+    if not supports(sgp.kernel.name):
+        raise ValueError(f"no fast path for kernel {sgp.kernel.name!r}")
+    if sgp.kernel.name in _FAST_SUM_KERNELS and not cfg.explicit:
+        raise ValueError("sum kernels imply the explicit map (Algorithm 2)")
+
+
 def apply_map_fast(
     sgp: SympGP,
     aux: AuxGP | None,
@@ -183,46 +235,46 @@ def apply_map_fast(
 ) -> Trajectory:
     """``apply_map`` for product and sum kernels, in the dtype and on the
     device of the inputs."""
-    if not supports(sgp.kernel.name):
-        raise ValueError(f"no fast path for kernel {sgp.kernel.name!r}")
-    is_sum = sgp.kernel.name in _FAST_SUM_KERNELS
-    if is_sum and not cfg.explicit:
-        raise ValueError("sum kernels imply the explicit map (Algorithm 2)")
+    _check_fast(sgp, cfg)
     q = torch.atleast_1d(q0)
     p = torch.atleast_1d(p0)
     pdiff = p
     qs, ps, pds = [q], [p], [p]
     for i in range(nm - 1):
-        if is_sum:
-            co = None
-            P = p - p_explicit_sum(sgp, q)
-        elif cfg.explicit:
-            co = precompute_step(sgp, q)
-            pGP, _ = p_value_slope(co, p)
-            P = p - pGP
-        else:
-            co = precompute_step(sgp, q)
-            P0 = aux_guess(aux, q, p)
-            P = newton_P(co, p, P0, cfg.newton_tol, cfg.newton_maxiter,
-                         fixed_iters)
-        if loss_pre is not None:
-            P = torch.where(loss_pre(q, q, P, i), torch.nan, P)
-        dPc = P - p
-        Pw = torch.remainder(P, cfg.mod_p) if cfg.mod_p is not None else P
-        dq = q_update_sum(sgp, Pw) if is_sum else q_update(co, Pw)
-        Q = dq + q
-        if cfg.mod_q is not None:
-            Q = torch.remainder(Q, cfg.mod_q)
-        if loss_post is not None:
-            lost = loss_post(q, Q, Pw, i)
-            Pw = torch.where(lost, torch.nan, Pw)
-            Q = torch.where(lost, torch.nan, Q)
-        Q = torch.where(torch.isnan(Pw), torch.nan, Q)
+        q, p, dPc = map_step(sgp, aux, q, p, i, cfg, loss_pre, loss_post,
+                             fixed_iters)
         pdiff = pdiff + dPc
-        q, p = Q, Pw
         qs.append(q)
         ps.append(p)
         pds.append(pdiff)
     if cfg.track_pdiff:
         return Trajectory(torch.stack(qs), torch.stack(ps), torch.stack(pds))
+    return Trajectory(torch.stack(qs), torch.stack(ps), None)
+
+
+def apply_map_split_fast(
+    sgps: list[SympGP],
+    auxes: list[AuxGP | None],
+    q0: Tensor,
+    p0: Tensor,
+    nm: int,
+    cfg: MapConfig = MapConfig(),
+    loss_pre: LossFn | None = None,
+    loss_post: LossFn | None = None,
+    fixed_iters: bool = False,
+) -> Trajectory:
+    """``apply_map_split`` on the fast path: step i (the one that makes row
+    i + 1) applies sub-map ``i % len(sgps)``; the Split tokamak checks the
+    loss boundary after the step (``loss_post``)."""
+    for sgp in sgps:
+        _check_fast(sgp, cfg)
+    q = torch.atleast_1d(q0)
+    p = torch.atleast_1d(p0)
+    qs, ps = [q], [p]
+    for i in range(nm - 1):
+        m = i % len(sgps)
+        q, p, _ = map_step(sgps[m], auxes[m], q, p, i, cfg, loss_pre,
+                           loss_post, fixed_iters)
+        qs.append(q)
+        ps.append(p)
     return Trajectory(torch.stack(qs), torch.stack(ps), None)

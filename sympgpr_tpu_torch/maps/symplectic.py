@@ -3,10 +3,10 @@ dispatch of ``apply_map`` (PyTorch port of part of
 ``sympgpr_tpu/maps/symplectic.py``).
 
 Every kernel of the family is a product or sum kernel, so ``apply_map``
-runs the factorized fast path (``maps/fast_apply.py``).  The autodiff
-generic path of the JAX package (``calc_P``, ``calc_Q``,
-``_apply_map_generic``), which is the fast path's oracle there, is not
-ported yet.
+and the Split variant ``apply_map_split`` run the factorized fast path
+(``maps/fast_apply.py``).  The autodiff generic path of the JAX package
+(``calc_P``, ``calc_Q``, ``_apply_map_generic``), which is the fast
+path's oracle there, is not ported yet.
 """
 
 from __future__ import annotations
@@ -62,3 +62,38 @@ def apply_map(
                                          loss_pre, loss_post)
     raise NotImplementedError(
         "the autodiff generic map path is not ported yet")
+
+
+def apply_map_split(
+    sgps: list[SympGP],
+    auxes: list[AuxGP | None],
+    q0: Tensor,
+    p0: Tensor,
+    nm: int,
+    n_maps: int,
+    cfg: MapConfig = MapConfig(),
+    loss_post: LossFn | None = None,
+) -> Trajectory:
+    """Split variant: cycle through ``n_maps`` independently fitted
+    sub-maps.
+
+    ``sgps``/``auxes`` hold one model per sub-map (``stack_models``).
+    Step i uses sub-map ``i % n_maps`` and applies ``loss_post`` at the new
+    q.  Returns (nm, B) trajectories whose row 0 is the initial condition.
+    """
+    from sympgpr_tpu_torch.maps import fast_apply
+
+    if len(sgps) != n_maps or len(auxes) != n_maps:
+        raise ValueError(f"{n_maps} sub-maps, got {len(sgps)} models and "
+                         f"{len(auxes)} aux models")
+    if not all(fast_apply.supports(s.kernel.name) for s in sgps):
+        raise NotImplementedError(
+            "the autodiff generic map path is not ported yet")
+    return fast_apply.apply_map_split_fast(sgps, auxes, q0, p0, nm, cfg,
+                                           loss_post=loss_post)
+
+
+def stack_models(models: list) -> list:
+    """The sub-maps' models for ``apply_map_split``: a list, one model per
+    sub-map (the JAX package stacks them into one pytree)."""
+    return list(models)

@@ -2,12 +2,14 @@
 launch (PyTorch port of ``sympgpr_tpu/ops/pallas_step.py``).
 
 The kernel (``csrc/rollout_step.cu``) replaces the Pallas kernel
-``_rollout_kernel`` for the modes the tokamak workload runs: implicit
+``_rollout_kernel`` for the modes the tokamak workloads run: implicit
 product kernels (per_se, se_se, per_se_freq) with the aux-GP warm start and
-fixed-iteration Newton, the tokamak loss check at the old q, the mod_q
-wrap, single map, float32 or float64.  The modes not covered yet (explicit
-and Algorithm-2 updates, mod_p with pdiff, the loss check at the new q,
-Split cycling) raise ``NotImplementedError``; nothing falls back.
+fixed-iteration Newton, the tokamak loss check at the old q (single map)
+or at the new q (Split), the mod_q wrap, one map or Split cycling over
+``n_maps`` sub-maps (step i uses sub-map ``(i - 1) % n_maps`` for row i),
+float32 or float64.  The modes not covered yet (explicit and Algorithm-2
+updates, mod_p with pdiff) raise ``NotImplementedError``; nothing falls
+back.
 
 ``rollout_in_kernel`` dispatches on the device of its inputs: CPU tensors
 go to the plain PyTorch version ``rollout_reference`` (the fast path of
@@ -59,9 +61,11 @@ INSTANCES = {
 }
 P_MAX = 16           # training points a lane holds, in any instance
 SOLVER_THREADS = 32  # a block's loss-solve warp, where the block has room
-# a lane's row of shared memory: FIELDS values for each of its points,
-# rounded up to whole groups of PAIRS points worked on together
+# a lane's row of shared memory: for each of its points (rounded up to
+# whole groups of PAIRS points worked on together) FIELDS values with one
+# map, and FIELDS_PER_MAP more for each further sub-map of a Split model
 FIELDS = 6
+FIELDS_PER_MAP = 4
 PAIRS = {torch.float32: 2, torch.float64: 1}
 BLOCK_THREADS = 256  # compute threads of a block of narrow teams
 SM_COUNT = 132       # H100 SXM
@@ -102,11 +106,18 @@ class Geometry:
     instance: tuple[int, int, int]
 
 
+def split_instance(n_maps: int, loss_at_new_q: bool) -> bool:
+    """Whether the kernel's Split instance runs: sub-map cycling, or the
+    loss check at the new q (with one map, as M = 1)."""
+    return n_maps > 1 or loss_at_new_q
+
+
 def launch_geometry(B: int, ns: int, nas: int, dtype: torch.dtype,
                     sm_count: int = SM_COUNT,
-                    team: int | None = None) -> Geometry:
+                    team: int | None = None, n_maps: int = 1,
+                    loss_at_new_q: bool = False) -> Geometry:
     """Team, block and instance for a batch of ``B`` orbits over ``ns``
-    training and ``nas`` aux points.
+    training and ``nas`` aux points of each of ``n_maps`` sub-maps.
 
     The team is the smallest power of two whose lanes hold no more points
     than an instance that shares its SM with other blocks takes (or the
@@ -122,16 +133,21 @@ def launch_geometry(B: int, ns: int, nas: int, dtype: torch.dtype,
     worth), fewer when the batch is small, so that it spreads over the
     SMs.  The instance is the first of ``INSTANCES[dtype]`` that holds the
     lane's points and the block's threads.
-    Shared memory: the aux table (4 columns), two slots of per-warp partial
-    sums, two of the loss-check staging (3 values per team), and a row per
-    lane (``FIELDS`` values for each of its points, rounded up to whole
-    ``PAIRS``, and one more).
+    Shared memory: the aux tables (4 columns of each sub-map), two slots
+    of per-warp partial sums, two of the loss-check staging (3 values per
+    team), a row per lane (``FIELDS`` values for each of its points, and
+    ``FIELDS_PER_MAP`` more per further sub-map, the points rounded up to
+    whole ``PAIRS``, and one value more) and, in the Split instance
+    (``split_instance``), a table of ``NSCAL`` derived constants per
+    sub-map.
     """
     widest = team_max(dtype)
     if ns > ns_max(dtype):
         raise ValueError(f"rollout kernel takes at most {ns_max(dtype)} "
                          f"training points in {dtype} ({widest} lanes x "
                          f"{P_MAX}); got {ns}")
+    if n_maps < 1:
+        raise ValueError(f"need n_maps >= 1; got {n_maps}")
     elt = torch.empty((), dtype=dtype).element_size()
     instances = INSTANCES[dtype]
 
@@ -142,9 +158,12 @@ def launch_geometry(B: int, ns: int, nas: int, dtype: torch.dtype,
         compute = team * tpb
         per_lane = -(-ns // team)
         pairs = PAIRS[dtype]
-        row = FIELDS * (-(-per_lane // pairs) * pairs) + 1
-        smem = (4 * nas + 4 * (compute // 32) + 6 * tpb
-                + row * compute) * elt
+        fields = FIELDS + FIELDS_PER_MAP * (n_maps - 1)
+        row = fields * (-(-per_lane // pairs) * pairs) + 1
+        consts = NSCAL * n_maps if split_instance(n_maps,
+                                                  loss_at_new_q) else 0
+        smem = (4 * n_maps * nas + 4 * (compute // 32) + 6 * tpb
+                + row * compute + consts) * elt
         threads = compute + (SOLVER_THREADS if compute + SOLVER_THREADS
                              <= max_threads(dtype) else 0)
         inst = next(i for i in instances
@@ -175,13 +194,15 @@ def launch_geometry(B: int, ns: int, nas: int, dtype: torch.dtype,
 
 @dataclasses.dataclass(frozen=True)
 class PackedModels:
-    """Model columns for the rollout kernel.
+    """Model columns for the rollout kernel, ``n_maps`` sub-maps stacked.
 
-    Columns are 1-D, zero-padded to a multiple of 8 (padding rows carry
-    zero alpha, so they add nothing); ``a0``/``a1``/``auxa`` carry the sig
-    factor.  ``scal`` is (1, NSCAL) in the columns' dtype (the JAX
-    package's layout for one map).  The remaining fields are plain Python
-    values known when packing.
+    Columns are 1-D, (n_maps * ns,) and (n_maps * nas,): each sub-map's
+    block zero-padded to the common stride ``ns`` / ``nas``, a multiple of
+    8 (padding rows carry zero alpha, so they add nothing);
+    ``a0``/``a1``/``auxa`` carry the sig factor.  ``scal`` is (n_maps,
+    NSCAL) in the columns' dtype (the JAX package's layout).  The remaining
+    fields are plain Python values known when packing; ``delta`` is every
+    sub-map's.
     """
 
     uq: Tensor
@@ -199,6 +220,7 @@ class PackedModels:
     delta: bool
     mod_q: float | None
     mod_p: float | None
+    n_maps: int = 1
 
     def tensors(self) -> tuple[Tensor, ...]:
         return (self.scal, self.uq, self.uP, self.a0, self.a1, self.auxq,
@@ -209,11 +231,14 @@ def _pad8(n: int) -> int:
     return max(8, -(-n // 8) * 8)
 
 
-def _col(v: Tensor, stride: int, dtype: torch.dtype) -> Tensor:
-    """float64 values -> zero-padded column, rounded to ``dtype`` once."""
-    out = torch.zeros(stride, dtype=torch.float64, device=v.device)
-    out[: v.shape[0]] = v
-    return out.to(dtype)
+def _col(vals: list[Tensor], stride: int, dtype: torch.dtype,
+         device: torch.device) -> Tensor:
+    """float64 values of each sub-map -> one zero-padded (M * stride,)
+    column, rounded to ``dtype`` once."""
+    out = torch.zeros(len(vals), stride, dtype=torch.float64, device=device)
+    for m, v in enumerate(vals):
+        out[m, : v.shape[0]] = v
+    return out.reshape(-1).to(dtype)
 
 
 def _freq_of(model) -> Tensor | float:
@@ -225,61 +250,85 @@ def _freq_of(model) -> Tensor | float:
 def pack_models(sgp: SympGP, aux: AuxGP | None, mod_q: float | None,
                 mod_p: float | None = None, *,
                 dtype: torch.dtype = torch.float32) -> PackedModels:
-    """Preprocess one fitted (sgp, aux) pair for the rollout kernel.
+    """Preprocess one fitted (sgp, aux) pair for the rollout kernel."""
+    return pack_models_split([sgp], [aux], mod_q=mod_q, mod_p=mod_p,
+                             dtype=dtype)
 
-    Columns are formed in float64 from the models (on their device) and
-    rounded to ``dtype`` once, as the JAX package's ``pack_models`` does
-    for float32.
+
+def pack_models_split(sgps: list[SympGP], auxes: list[AuxGP | None],
+                      mod_q: float | None, mod_p: float | None = None, *,
+                      dtype: torch.dtype = torch.float32) -> PackedModels:
+    """Stack ``M`` fitted sub-maps (Split tokamak) for the kernel's cycling.
+
+    Every sub-map gets the same stride (the largest padded size), so the
+    kernel finds sub-map m's block at ``m * ns``; all share one kernel
+    kind.  Columns are formed in float64 from the models (on their device)
+    and rounded to ``dtype`` once, as the JAX package's
+    ``pack_models_split`` does for float32.
     """
-    dev = sgp.device
+    if len(sgps) != len(auxes) or not sgps:
+        raise ValueError(f"need one aux model (or None) per sub-map; got "
+                         f"{len(sgps)} and {len(auxes)}")
+    kind = _KIND[sgps[0].kernel.name]
+    if any(_KIND[s.kernel.name] != kind for s in sgps):
+        raise ValueError("all sub-maps must share a kernel variant")
+    aux0 = next((a for a in auxes if a is not None), None)
+    aux_kind = _KIND[aux0.kernel.name] if aux0 is not None else 0
+    deltas = {bool(a is not None and a.delta) for a in auxes}
+    if len(deltas) > 1:
+        raise ValueError("all sub-maps' aux models must share delta")
+    dev = sgps[0].device
     f64 = torch.float64
-    n = sgp.n_train
-    ns = _pad8(n)
-    nas = _pad8(aux.X.shape[0]) if aux is not None else 8
-    al = sgp.alpha.to(f64).reshape(2, n)
-    sig = sgp.sig.to(f64)
+    ns = max(_pad8(s.n_train) for s in sgps)
+    nas = max(_pad8(a.X.shape[0]) if a is not None else 8 for a in auxes)
     empty = torch.zeros(0, dtype=f64, device=dev)
-    if aux is not None:
-        auxq, auxp = aux.X[:, 0].to(f64), aux.X[:, 1].to(f64)
-        auxa = aux.sig.to(f64) * aux.alpha.to(f64)
-    else:
-        auxq = auxp = auxa = empty
 
-    def s(x) -> Tensor:
+    def sc(x) -> Tensor:
         return torch.as_tensor(x, dtype=f64, device=dev).reshape(())
 
-    scal = torch.stack([
-        s(sgp.params[0]), s(sgp.params[1]),
-        s(aux.params[0] if aux is not None else 1.0),
-        s(aux.params[1] if aux is not None else 1.0),
-        s(1.0 if (aux is not None and aux.delta) else 0.0),
-        s(mod_q if mod_q is not None else 0.0),
-        s(_freq_of(sgp)), s(_freq_of(aux)),
-        s(mod_p if mod_p is not None else 0.0),
-        s(0.0), s(0.0), s(0.0),
-    ])[None, :].to(dtype)
+    cols = {k: [] for k in ("uq", "uP", "a0", "a1", "auxq", "auxp", "auxa")}
+    scal = []
+    for sgp, aux in zip(sgps, auxes):
+        n = sgp.n_train
+        al = sgp.alpha.to(f64).reshape(2, n)
+        sig = sgp.sig.to(f64)
+        cols["uq"].append(sgp.X[:, 0].to(f64))
+        cols["uP"].append(sgp.X[:, 1].to(f64))
+        cols["a0"].append(sig * al[0])
+        cols["a1"].append(sig * al[1])
+        if aux is not None:
+            cols["auxq"].append(aux.X[:, 0].to(f64))
+            cols["auxp"].append(aux.X[:, 1].to(f64))
+            cols["auxa"].append(aux.sig.to(f64) * aux.alpha.to(f64))
+        else:
+            for k in ("auxq", "auxp", "auxa"):
+                cols[k].append(empty)
+        scal.append(torch.stack([
+            sc(sgp.params[0]), sc(sgp.params[1]),
+            sc(aux.params[0] if aux is not None else 1.0),
+            sc(aux.params[1] if aux is not None else 1.0),
+            sc(1.0 if (aux is not None and aux.delta) else 0.0),
+            sc(mod_q if mod_q is not None else 0.0),
+            sc(_freq_of(sgp)), sc(_freq_of(aux)),
+            sc(mod_p if mod_p is not None else 0.0),
+            sc(0.0), sc(0.0), sc(0.0),
+        ]))
+    packed = {k: _col(v, nas if k.startswith("aux") else ns, dtype, dev)
+              for k, v in cols.items()}
     return PackedModels(
-        uq=_col(sgp.X[:, 0].to(f64), ns, dtype),
-        uP=_col(sgp.X[:, 1].to(f64), ns, dtype),
-        a0=_col(sig * al[0], ns, dtype), a1=_col(sig * al[1], ns, dtype),
-        auxq=_col(auxq, nas, dtype), auxp=_col(auxp, nas, dtype),
-        auxa=_col(auxa, nas, dtype), scal=scal,
-        kind=_KIND[sgp.kernel.name],
-        aux_kind=_KIND[aux.kernel.name] if aux is not None else 0,
-        ns=ns, nas=nas,
-        delta=bool(aux is not None and aux.delta), mod_q=mod_q, mod_p=mod_p,
+        **packed, scal=torch.stack(scal).to(dtype),
+        kind=kind, aux_kind=aux_kind, ns=ns, nas=nas,
+        delta=deltas.pop(), mod_q=mod_q, mod_p=mod_p, n_maps=len(sgps),
     )
 
 
-def _check_supported(pm: PackedModels, loss_at_new_q: bool, explicit: bool,
+def _check_supported(pm: PackedModels, explicit: bool,
                      track_pdiff: bool) -> None:
     missing = []
     if pm.kind not in (0, 1, 2):
         missing.append(f"kernel {_KIND_NAME[pm.kind]!r} (Algorithm 2)")
     if pm.mod_p is not None or track_pdiff:
         missing.append("mod_p wrap and pdiff tracking")
-    if loss_at_new_q:
-        missing.append("the loss check at the new q")
     if explicit:
         missing.append("the explicit update")
     if missing:
@@ -288,14 +337,18 @@ def _check_supported(pm: PackedModels, loss_at_new_q: bool, explicit: bool,
 
 
 def _tokamak_lost(P: Tensor, q: Tensor) -> Tensor:
-    """Loss boundary at the old q: r > 0.5 or P < 0 (single map, ph = 0)."""
+    """Loss boundary at angle q: r > 0.5 or P < 0 (r does not depend on
+    the toroidal angle)."""
     r = compute_r(P * 1e-2, q, 0.0, torch.full_like(P, 0.3))
     return (r > 0.5) | (P < 0.0)
 
 
-def _models_of(pm: PackedModels) -> tuple[SympGP, AuxGP]:
-    """Fast-path models over the packed columns (sig folded into alpha)."""
-    sc = pm.scal[0]
+def _models_of(pm: PackedModels, m: int = 0) -> tuple[SympGP, AuxGP]:
+    """Fast-path models of sub-map ``m`` over the packed columns (sig
+    folded into alpha)."""
+    sc = pm.scal[m]
+    t = slice(m * pm.ns, (m + 1) * pm.ns)
+    a = slice(m * pm.nas, (m + 1) * pm.nas)
     one = torch.ones((), dtype=sc.dtype, device=sc.device)
     none = torch.zeros(0, dtype=sc.dtype, device=sc.device)
     kname = _KIND_NAME[pm.kind]
@@ -303,36 +356,47 @@ def _models_of(pm: PackedModels) -> tuple[SympGP, AuxGP]:
     sgp = SympGP(
         kernel=get_kernel(kname),
         params=sc[[0, 1, 6]] if kname == "per_se_freq" else sc[[0, 1]],
-        sig=one, sig2n=one, X=torch.stack([pm.uq, pm.uP], 1), z=none,
-        alpha=torch.cat([pm.a0, pm.a1]), L=none)
+        sig=one, sig2n=one, X=torch.stack([pm.uq[t], pm.uP[t]], 1), z=none,
+        alpha=torch.cat([pm.a0[t], pm.a1[t]]), L=none)
     aux = AuxGP(
         kernel=get_kernel(aname), delta=pm.delta,
         params=sc[[2, 3, 7]] if aname == "per_se_freq" else sc[[2, 3]],
-        sig=one, sig2n=one, X=torch.stack([pm.auxq, pm.auxp], 1), z=none,
-        alpha=pm.auxa, L=none)
+        sig=one, sig2n=one, X=torch.stack([pm.auxq[a], pm.auxp[a]], 1),
+        z=none, alpha=pm.auxa[a], L=none)
     return sgp, aux
 
 
 def rollout_reference(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int,
-                      iters: int = 5, loss_check: bool = False):
+                      iters: int = 5, loss_check: bool = False,
+                      loss_at_new_q: bool = False):
     """Plain PyTorch version of the kernel, in the dtype of the inputs.
 
-    ``maps.fast_apply.apply_map_fast`` with ``iters`` fixed Newton
-    iterations over the packed columns, the tokamak loss check at the old
-    q, and the mod_q wrap.  Returns (Q, P), each (nm, B).
+    The fast path of ``maps.fast_apply`` with ``iters`` fixed Newton
+    iterations over the packed columns (``apply_map_split_fast``: step i,
+    making row i + 1, with sub-map ``i % n_maps``; with one map, the steps
+    of ``apply_map_fast``), the tokamak loss check at the old q or, with
+    ``loss_at_new_q``, at the new q, and the mod_q wrap.  Returns (Q, P),
+    each (nm, B).
     """
-    _check_supported(pm, False, False, False)
-    sgp, aux = _models_of(pm)
+    _check_supported(pm, False, False)
     cfg = MapConfig(mod_q=pm.scal[0, 5] if pm.mod_q is not None else None,
                     newton_maxiter=iters)
-    loss = (lambda q, Q, P, i: _tokamak_lost(P, q)) if loss_check else None
-    traj = fast_apply.apply_map_fast(sgp, aux, q0, p0, nm, cfg,
-                                     loss_pre=loss, fixed_iters=True)
+    if not loss_check:
+        loss_pre = loss_post = None
+    elif loss_at_new_q:
+        loss_pre, loss_post = None, lambda q, Q, P, i: _tokamak_lost(P, Q)
+    else:
+        loss_pre, loss_post = lambda q, Q, P, i: _tokamak_lost(P, q), None
+    sgps, auxes = zip(*(_models_of(pm, m) for m in range(pm.n_maps)))
+    traj = fast_apply.apply_map_split_fast(
+        list(sgps), list(auxes), q0, p0, nm, cfg, loss_pre=loss_pre,
+        loss_post=loss_post, fixed_iters=True)
     return traj.q, traj.p
 
 
 def _validate(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int,
-              iters: int, team: int | None = None) -> Geometry:
+              iters: int, team: int | None = None,
+              loss_at_new_q: bool = False) -> Geometry:
     """Raise on anything the kernel does not take; else its geometry."""
     dev, dtype = q0.device, q0.dtype
     if dtype not in (torch.float32, torch.float64):
@@ -351,25 +415,32 @@ def _validate(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int,
         raise ValueError(f"batch {q0.shape[0]} too large")
     if nm < 1 or iters < 0:
         raise ValueError(f"need nm >= 1 and iters >= 0; got {nm}, {iters}")
+    M = pm.n_maps
+    if pm.scal.shape != (M, NSCAL):
+        raise ValueError(f"scal of shape {tuple(pm.scal.shape)} for {M} "
+                         f"sub-map(s)")
     sm_count = (torch.cuda.get_device_properties(dev).multi_processor_count
                 if dev.type == "cuda" else SM_COUNT)
-    geo = launch_geometry(q0.shape[0], pm.ns, pm.nas, dtype, sm_count, team)
+    geo = launch_geometry(q0.shape[0], pm.ns, pm.nas, dtype, sm_count, team,
+                          M, loss_at_new_q)
     if geo.smem_bytes > SMEM_LIMIT:
         raise ValueError(
-            f"aux table ({pm.nas} points, {dtype}) needs {geo.smem_bytes} "
-            f"bytes of shared memory; a block has {SMEM_LIMIT}")
+            f"aux tables ({M} x {pm.nas} points, {dtype}) need "
+            f"{geo.smem_bytes} bytes of shared memory; a block has "
+            f"{SMEM_LIMIT}")
     return geo
 
 
-_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
 
 
 def _launch(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int, iters: int,
-            loss_check: bool, team: int | None = None):
+            loss_check: bool, team: int | None = None,
+            loss_at_new_q: bool = False):
     """Launch the kernel on CUDA tensors; ``team`` forces the lanes per
     orbit (``launch_geometry`` chooses by default)."""
     global LAUNCHES
-    geo = _validate(pm, q0, p0, nm, iters, team)
+    geo = _validate(pm, q0, p0, nm, iters, team, loss_at_new_q)
     dev, dtype = q0.device, q0.dtype
     B = q0.shape[0]
     sym = "rollout_step_f32" if dtype == torch.float32 else "rollout_step_f64"
@@ -379,8 +450,9 @@ def _launch(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int, iters: int,
     ptr = _build.ptr
     with torch.cuda.device(dev):
         rc = fn(*(ptr(t) for t in pm.tensors()), ptr(q0), ptr(p0), ptr(Q),
-                ptr(P), B, pm.ns, pm.nas, nm, iters, pm.kind, pm.aux_kind,
-                int(loss_check), geo.team, geo.teams_per_block, geo.threads,
+                ptr(P), B, pm.ns, pm.nas, pm.n_maps, nm, iters, pm.kind,
+                pm.aux_kind, int(loss_check), int(loss_at_new_q), geo.team,
+                geo.teams_per_block, geo.threads,
                 geo.smem_bytes, *geo.instance, _build.stream(dev))
     _build.check(rc, "rollout kernel")
     LAUNCHES += 1
@@ -396,20 +468,26 @@ def rollout_in_kernel(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int,
     CPU tensors run ``rollout_reference``; CUDA tensors launch the kernel
     (and raise if it cannot).
     """
-    _check_supported(pm, loss_at_new_q, explicit, track_pdiff)
+    _check_supported(pm, explicit, track_pdiff)
     if q0.device.type == "cpu":
-        return rollout_reference(pm, q0, p0, nm, iters, loss_check)
+        return rollout_reference(pm, q0, p0, nm, iters, loss_check,
+                                 loss_at_new_q)
     if q0.device.type != "cuda":
         raise ValueError(f"no rollout for device {q0.device}")
-    return _launch(pm, q0, p0, nm, iters, loss_check)
+    return _launch(pm, q0, p0, nm, iters, loss_check,
+                   loss_at_new_q=loss_at_new_q)
 
 
-def rollout_model(sgp: SympGP, aux: AuxGP | None, q0: Tensor, p0: Tensor,
-                  nm: int, *, mod_q: float | None = 2.0 * math.pi,
-                  iters: int = 5, loss_check: bool = False,
+def rollout_model(sgp: SympGP | list[SympGP],
+                  aux: AuxGP | list[AuxGP | None] | None, q0: Tensor,
+                  p0: Tensor, nm: int, *,
+                  mod_q: float | None = 2.0 * math.pi, iters: int = 5,
+                  loss_check: bool = False, loss_at_new_q: bool = False,
                   deployment_jitter: float | None = 1e-3,
                   dtype: torch.dtype = torch.float32):
-    """Model-level fused rollout (counterpart of ``rollout_pallas``).
+    """Model-level fused rollout (counterpart of ``rollout_pallas``), one
+    map or a list of Split sub-maps (with a list of aux models, or one
+    for all).
 
     Re-solves alpha at the deployment jitter on the float64 models
     (``for_deployment``), packs them (each column rounded to ``dtype``
@@ -417,19 +495,20 @@ def rollout_model(sgp: SympGP, aux: AuxGP | None, q0: Tensor, p0: Tensor,
     whole trajectory lives in device memory, so the time axis is not
     chunked.  Returns (Q, P), each (nm, B).
     """
-    if isinstance(sgp, (list, tuple)):
-        raise NotImplementedError(
-            "rollout kernel does not cover yet: Split cycling over several "
-            "sub-maps")
+    sgps = list(sgp) if isinstance(sgp, (list, tuple)) else [sgp]
+    auxes = (list(aux) if isinstance(aux, (list, tuple))
+             else [aux] * len(sgps))
     if deployment_jitter is not None:
-        sgp = sgp.for_deployment(deployment_jitter)
-        aux = aux.for_deployment(deployment_jitter) if aux is not None \
-            else None
-    pm = pack_models(sgp, aux, mod_q=mod_q, dtype=dtype)
-    if q0.device != sgp.device or p0.device != sgp.device:
+        sgps = [s.for_deployment(deployment_jitter) for s in sgps]
+        auxes = [a.for_deployment(deployment_jitter) if a is not None
+                 else None for a in auxes]
+    pm = pack_models_split(sgps, auxes, mod_q=mod_q, dtype=dtype)
+    dev = sgps[0].device
+    if q0.device != dev or p0.device != dev:
         raise ValueError(f"initial conditions on {q0.device}, models on "
-                         f"{sgp.device}")
+                         f"{dev}")
     q0 = q0.to(dtype).contiguous()
     p0 = p0.to(dtype).contiguous()
     return rollout_in_kernel(pm, q0, p0, nm, iters=iters,
-                             loss_check=loss_check)
+                             loss_check=loss_check,
+                             loss_at_new_q=loss_at_new_q)

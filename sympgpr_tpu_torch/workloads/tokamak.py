@@ -1,14 +1,18 @@
-"""Tokamak field-line map workload, single map (PyTorch port of
+"""Tokamak field-line map workload, single map over one toroidal turn or
+the Split layout of ``nphmap`` sub-maps (PyTorch port of
 ``sympgpr_tpu/workloads/tokamak.py``).
 
-Data generation and both GP fits run in float64 on the given device.  The
-map is then iterated over the test orbits by one of two backends:
+Data generation and the GP fits (an aux and a symplectic GP per sub-map)
+run in float64 on the given device.  The map is then iterated over the
+test orbits by one of two backends:
 
 * ``generic``: the float64 fast path (``maps.fast_apply``) with the masked
-  early-exit Newton;
+  early-exit Newton; the Split layout cycles the sub-maps
+  (``apply_map_split``) and checks the loss boundary at the new q;
 * ``kernel``: the fused rollout (``ops.cuda_step.rollout_model``) in
-  float32 on deployment-conditioned models; on a CUDA device that is the
-  hand-written kernel, on the CPU its plain PyTorch version.
+  float32 on deployment-conditioned models, cycling the sub-maps inside
+  the kernel; on a CUDA device that is the hand-written kernel, on the CPU
+  its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -21,10 +25,18 @@ from typing import Any
 import numpy as np
 import torch
 
+Tensor = torch.Tensor
+
 from sympgpr_tpu_torch.eval import metrics
 from sympgpr_tpu_torch.gp.train import fit_auxgp, fit_sympgp
 from sympgpr_tpu_torch.kernels import PER_SE
-from sympgpr_tpu_torch.maps.symplectic import MapConfig, Trajectory, apply_map
+from sympgpr_tpu_torch.maps.symplectic import (
+    MapConfig,
+    Trajectory,
+    apply_map,
+    apply_map_split,
+    stack_models,
+)
 from sympgpr_tpu_torch.systems import tokamak as tk
 
 
@@ -36,17 +48,22 @@ def _sync(device: torch.device) -> None:
 def _fit_one_split(q, p, Q, P, cfg: tk.TokamakConfig, optimizer: str):
     """Fit (aux, sympl) GPs for one sub-map with the reference's settings:
     aux log10 over (lq, lp, sig) from (-1, 0, 1) with NLL noise 1e-8;
-    sympl linear over (lx, ly, sig) from (0.5, 0.5, 10)."""
+    sympl linear over (lx, ly, sig) from (0.5, 0.5, 10), or with CMA-ES
+    (sigma0 0.5, seed 0, the Split tokamak's optimizer) from (0.5, 2.5,
+    2.0)."""
+    cmaes = optimizer == "cmaes"
+    opt_kwargs = dict(sigma0=0.5, seed=0) if cmaes else {}
     Xp = torch.stack([q, p], 1)
     aux, _ = fit_auxgp(
         PER_SE, Xp, P - p, sig2n=cfg.sig2_n, nll_sig2n=1e-8,
         x0=(-1.0, 0.0, 1.0), transform="log10", optimizer=optimizer,
-        delta=True)
+        delta=True, **opt_kwargs)
     X = torch.stack([q, P], 1)
     z = torch.cat([p - P, Q - q])
     sgp, res = fit_sympgp(
-        PER_SE, X, z, sig2n=cfg.sig2_n, x0=(0.5, 0.5, 10.0),
-        transform="linear", optimizer=optimizer)
+        PER_SE, X, z, sig2n=cfg.sig2_n,
+        x0=(0.5, 2.5, 2.0) if cmaes else (0.5, 0.5, 10.0),
+        transform="linear", optimizer=optimizer, **opt_kwargs)
     return aux, sgp, res
 
 
@@ -77,23 +94,27 @@ def run(
     """Generate data, fit, roll out the test orbits and score them.
 
     backend: 'generic' (float64 fast path) or 'kernel' (float32 fused
-    rollout).  ``with_reference`` integrates the plotting reference over
-    ``nm`` turns (slow in eager mode) and the one-turn reference from the
-    same ICs that gives ``gd``.
+    rollout).  With ``cfg.nphmap`` = M > 1 each row of the trajectory is
+    one sub-map step, M rows a turn.  ``with_reference`` integrates the
+    plotting reference over ``nm // M`` turns (slow in eager mode) and the
+    one-turn reference from the same ICs that gives ``gd``.
     """
-    if cfg.nphmap != 1:
-        raise NotImplementedError("the Split layout (nphmap > 1) is not "
-                                  "ported yet")
     if backend not in ("generic", "kernel"):
         raise ValueError(f"unknown backend {backend!r}")
     device = torch.device(device)
     nm = nm if nm is not None else cfg.nm
+    M = cfg.nphmap
 
     data = tk.training_data(cfg, device)
     t0 = time.time()
-    aux, sgp, _ = _fit_one_split(data["q"][:, 0], data["p"][:, 0],
-                                 data["Q"][:, 0], data["P"][:, 0], cfg,
-                                 optimizer)
+    auxes, sgps, fits = [], [], []
+    for m in range(M):
+        aux, sgp, res = _fit_one_split(
+            data["q"][:, m], data["p"][:, m], data["Q"][:, m],
+            data["P"][:, m], cfg, optimizer)
+        auxes.append(aux)
+        sgps.append(sgp)
+        fits.append(res)
     _sync(device)
     t_train = time.time() - t0
 
@@ -102,16 +123,7 @@ def run(
     P0 = pth0 * cfg.momentum_scale
 
     t0 = time.time()
-    if backend == "kernel":
-        from sympgpr_tpu_torch.ops import cuda_step
-
-        Qt, Pt = cuda_step.rollout_model(sgp, aux, Q0, P0, nm,
-                                         mod_q=2 * math.pi, loss_check=True)
-        traj = Trajectory(Qt, Pt, None)
-    else:
-        map_cfg = MapConfig(newton_tol=1e-12, newton_maxiter=20)
-        traj = apply_map(sgp, aux, Q0, P0, nm, map_cfg,
-                         loss_pre=make_loss_fn(cfg, use_new_q=False))
+    traj = rollout(cfg, sgps, auxes, Q0, P0, nm, backend)
     _sync(device)
     t_apply = time.time() - t0
 
@@ -120,35 +132,68 @@ def run(
         optimizer=optimizer,
         backend=backend,
         device=str(device),
-        hyps=[sgp.params.cpu().numpy()],
-        sigs=[float(sgp.sig)],
-        training_error=float(sgp.training_error()),
+        hyps=[s.params.cpu().numpy() for s in sgps],
+        sigs=[float(s.sig) for s in sgps],
+        training_error=float(np.mean([float(s.training_error())
+                                      for s in sgps])),
         t_train=t_train,
         t_apply=t_apply,
+        nfev_sympl=[res.nfev for res in fits],
         traj=traj,
         n_lost=int(torch.isnan(traj.p[-1]).sum()),
-        models=(sgp, aux),
+        models=(sgps, auxes),
     )
 
-    H = tk.field_energy(cfg.field, traj.q, traj.p)
-    out["Eosc"] = metrics.energy_oscillation(H, dim=0).cpu().numpy()
+    out["Eosc"] = section_eosc(cfg, traj)
 
     if with_reference:
-        n_turns = max(nm, 1)
+        n_turns = max(nm // M, 1)
         ref = tk.reference_orbits(cfg, r0p, th0p, n_turns, device)
         out["ref_sections"] = ref[:: cfg.nph].cpu().numpy()
         out.update(one_turn_gd(cfg, traj, r0, th0, device))
     return out
 
 
+def rollout(cfg: tk.TokamakConfig, sgps: list, auxes: list, Q0: Tensor,
+            P0: Tensor, nm: int, backend: str) -> Trajectory:
+    """Iterate the fitted (sub-)maps over the test orbits: the float64
+    fast path (``generic``) or the float32 fused rollout (``kernel``)."""
+    M = cfg.nphmap
+    if backend == "kernel":
+        from sympgpr_tpu_torch.ops import cuda_step
+
+        # the Split tokamak cycles the M sub-maps inside the kernel and
+        # checks the loss boundary at the new angle
+        Qt, Pt = cuda_step.rollout_model(sgps, auxes, Q0, P0, nm,
+                                         mod_q=2 * math.pi, loss_check=True,
+                                         loss_at_new_q=(M > 1))
+        return Trajectory(Qt, Pt, None)
+    map_cfg = MapConfig(newton_tol=1e-12, newton_maxiter=20)
+    if M == 1:
+        return apply_map(sgps[0], auxes[0], Q0, P0, nm, map_cfg,
+                         loss_pre=make_loss_fn(cfg, use_new_q=False))
+    return apply_map_split(stack_models(sgps), stack_models(auxes), Q0, P0,
+                           nm, M, map_cfg,
+                           loss_post=make_loss_fn(cfg, use_new_q=True))
+
+
+def section_eosc(cfg: tk.TokamakConfig, traj: Trajectory) -> np.ndarray:
+    """Energy oscillation of each orbit over its sections (every
+    ``cfg.nphmap``-th row: one point a turn)."""
+    M = cfg.nphmap
+    H = tk.field_energy(cfg.field, traj.q[::M], traj.p[::M])
+    return metrics.energy_oscillation(H, dim=0).cpu().numpy()
+
+
 def one_turn_gd(cfg: tk.TokamakConfig, traj: Trajectory, r0, th0,
                 device: torch.device | str) -> dict[str, Any]:
-    """gd of the first mapped section point vs the one-turn reference
-    orbit from the same ICs."""
+    """gd of the first mapped section point (row ``cfg.nphmap``: one turn)
+    vs the one-turn reference orbit from the same ICs."""
+    M = cfg.nphmap
     ref_same = tk.reference_orbits(cfg, r0, th0, 1, device)
     qr = torch.remainder(ref_same[-1, :, 1], 2 * math.pi)
     pr = ref_same[-1, :, 0] * cfg.momentum_scale
-    gd, stdgd = metrics.geometric_distance(traj.q[1], traj.p[1], qr, pr)
+    gd, stdgd = metrics.geometric_distance(traj.q[M], traj.p[M], qr, pr)
     return {"gd": gd.cpu().numpy(), "stdgd": float(stdgd)}
 
 

@@ -225,3 +225,158 @@ def test_kernel_float64_at_n4096(cuda):
     assert torch.equal(torch.isnan(Pk), torch.isnan(Pr))
     assert int(torch.isnan(Pk[-1]).sum()) < 40
     assert max(_diff(Qk, Qr), _diff(Pk, Pr)) <= 1e-9
+
+
+# --- Split cycling and the loss check at the new q -------------------------
+
+# forced team sizes over M = 1, 2 and 4 sub-maps of different sizes (row i
+# is made by sub-map (i - 1) mod M); the aux tables of all sub-maps share a
+# block's shared memory with the longer rows, so the wide cases take 300
+# aux points a sub-map
+SPLIT_CASES = [  # team, the sub-maps' training points
+    (1, (8, 5)), (1, (8, 5, 7, 3)), (8, (37, 20)), (8, (37, 20, 29, 12)),
+    (32, (40,)), (32, (40, 24, 33, 17)), (256, (1000, 600)),
+    (512, (1000, 600, 800, 300))]
+SPLIT_F64 = [c for c in SPLIT_CASES if c[0] <= cs.team_max(torch.float64)]
+SPLIT_AUX = 300
+
+
+def _split_models(sizes, dtype, device, name="per_se"):
+    """Sub-maps that differ (their own points, targets and
+    hyperparameters), packed together."""
+    k = kv.get_kernel(name)
+    f64 = dict(dtype=torch.float64, device=device)
+    sgps, auxes = [], []
+    for m, n in enumerate(sizes):
+        X, z, Xp, zp = toy_data(n, seed=10 + m)
+        params = [0.9 + 0.1 * m, 1.2 - 0.1 * m, 0.55][: k.n_params]
+        na = min(n, SPLIT_AUX)
+        sgps.append(SympGP.create(k, params, 1.5, 1e-2,
+                                  torch.tensor(X, **f64), z))
+        auxes.append(AuxGP.create(k, params, 1.5, 1e-2,
+                                  torch.tensor(Xp[:na], **f64), zp[:na]))
+    return cs.pack_models_split(sgps, auxes, mod_q=2 * math.pi, dtype=dtype)
+
+
+@pytest.mark.parametrize("new_q", [False, True])
+@pytest.mark.parametrize("team,sizes", SPLIT_F64)
+def test_split_kernel_forced_team_float64(cuda, team, sizes, new_q):
+    """Every team size with 1, 2 and 4 sub-maps against the plain version:
+    1e-9 over 100 steps, the same NaN pattern, a batch that is no multiple
+    of the block; the loss check at the old or the new q."""
+    f64 = dict(dtype=torch.float64, device=cuda)
+    pm = _split_models(sizes, torch.float64, cuda)
+    assert pm.n_maps == len(sizes)
+    q0, p0 = (torch.tensor(x, **f64) for x in ics(2, b=77))
+    Qk, Pk = cs._launch(pm, q0, p0, 100, 5, loss_check=True, team=team,
+                        loss_at_new_q=new_q)
+    Qr, Pr = cs.rollout_reference(pm, q0, p0, 100, loss_check=True,
+                                  loss_at_new_q=new_q)
+    assert torch.equal(torch.isnan(Pk), torch.isnan(Pr))
+    assert max(_diff(Qk, Qr), _diff(Pk, Pr)) <= 1e-9
+
+
+@pytest.mark.parametrize("team,sizes", SPLIT_CASES)
+def test_split_kernel_forced_team_float32(cuda, team, sizes):
+    """float32 at steps 1-2 at 1e-4 (as test_kernel_forced_team_float32),
+    the same NaN pattern, the loss check at the new q."""
+    pm = _split_models(sizes, torch.float32, cuda)
+    q0, p0 = (torch.tensor(x, dtype=torch.float32, device=cuda)
+              for x in ics(3, b=301))
+    Qk, Pk = cs._launch(pm, q0, p0, 3, 5, loss_check=True, team=team,
+                        loss_at_new_q=True)
+    Qr, Pr = cs.rollout_reference(pm, q0, p0, 3, loss_check=True,
+                                  loss_at_new_q=True)
+    np.testing.assert_array_equal(npy(torch.isnan(Pk)), npy(torch.isnan(Pr)))
+    assert max(_diff(Qk[1:3], Qr[1:3]), _diff(Pk[1:3], Pr[1:3])) <= 1e-4
+
+
+@pytest.mark.parametrize("name", ["per_se", "se_se", "per_se_freq"])
+def test_split_kernel_kinds_float64(cuda, name):
+    """All three kinds with four sub-maps (per_se_freq: each sub-map its
+    own frequency), the default geometry, 1e-9 over 100 steps."""
+    pm = _split_models((40, 24, 33, 17), torch.float64, cuda, name)
+    q0, p0 = (torch.tensor(x, dtype=torch.float64, device=cuda)
+              for x in ics(4, b=200))
+    Qk, Pk = cs.rollout_in_kernel(pm, q0, p0, 100, loss_check=True,
+                                  loss_at_new_q=True)
+    Qr, Pr = cs.rollout_reference(pm, q0, p0, 100, loss_check=True,
+                                  loss_at_new_q=True)
+    assert torch.equal(torch.isnan(Pk), torch.isnan(Pr))
+    assert max(_diff(Qk, Qr), _diff(Pk, Pr)) <= 1e-9
+
+
+def _boundary_models(device):
+    """Two sub-maps near the tokamak's loss boundary (P in [10, 14]: r =
+    0.5 at cos q = 0.12 for P = 12) that turn q by ~1 and ~0.5 a step."""
+    f64 = dict(dtype=torch.float64, device=device)
+    sgps, auxes = [], []
+    for m, (n, shift) in enumerate(((24, 1.0), (16, 0.5))):
+        rng = np.random.default_rng(m)
+        q, P = rng.uniform(0, 2 * np.pi, n), rng.uniform(10, 14, n)
+        z = np.concatenate([0.01 * np.sin(q), shift + 0.1 * np.cos(q)])
+        X = torch.tensor(np.stack([q, P], 1), **f64)
+        sgps.append(SympGP.create(kv.PER_SE, [0.9, 1.2], 1.5, 1e-2, X, z))
+        auxes.append(AuxGP.create(kv.PER_SE, [0.9, 1.2], 1.5, 1e-2, X,
+                                  np.zeros(n)))
+    return sgps, auxes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_new_q_check_nan_rows(cuda, dtype):
+    """On the loss boundary: an orbit lost at step i is NaN from row i on,
+    in the kernel as in the plain version, and the checks at the old and
+    the new q lose other orbits at other steps."""
+    pm = cs.pack_models_split(*_boundary_models(cuda), mod_q=2 * math.pi,
+                              dtype=dtype)
+    q0 = torch.linspace(0, 2 * math.pi, 301, dtype=dtype, device=cuda)
+    p0 = torch.full_like(q0, 12.0)
+    lost = {}
+    for new_q in (False, True):
+        Qk, Pk = cs.rollout_in_kernel(pm, q0, p0, 8, loss_check=True,
+                                      loss_at_new_q=new_q)
+        Qr, Pr = cs.rollout_reference(pm, q0, p0, 8, loss_check=True,
+                                      loss_at_new_q=new_q)
+        nan = torch.isnan(Pk)
+        assert torch.equal(nan, torch.isnan(Pr))
+        assert torch.equal(nan, torch.isnan(Qk))
+        assert torch.equal(nan, torch.cummax(nan.int(), 0).values.bool())
+        steps = 8 if dtype == torch.float64 else 3
+        atol = 1e-9 if dtype == torch.float64 else 1e-4
+        assert max(_diff(Qk[:steps], Qr[:steps]),
+                   _diff(Pk[:steps], Pr[:steps])) <= atol
+        lost[new_q] = nan
+    assert 0 < int(lost[True][1].sum()) < 301
+    assert not torch.equal(lost[True], lost[False])
+
+
+@pytest.mark.parametrize("sizes", [(40,), (40, 24, 33, 17)])
+def test_kernel_bitwise_deterministic(cuda, sizes):
+    """Two launches give the same bits (fixed-order team sums, no
+    atomics), one map and four."""
+    pm = _split_models(sizes, torch.float32, cuda)
+    q0, p0 = (torch.tensor(x, dtype=torch.float32, device=cuda)
+              for x in ics(5, b=1000))
+    a = cs.rollout_in_kernel(pm, q0, p0, 200, loss_check=True,
+                             loss_at_new_q=len(sizes) > 1)
+    b = cs.rollout_in_kernel(pm, q0, p0, 200, loss_check=True,
+                             loss_at_new_q=len(sizes) > 1)
+    for x, y in zip(a, b):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+def test_pack_models_one_map_unchanged(cuda):
+    """One map: pack_models is pack_models_split of one, and the same
+    model repeated as two sub-maps runs the Split instance to the same
+    bits as the one-map instance."""
+    sgp, aux = _models("per_se", cuda)
+    one = cs.pack_models(sgp, aux, mod_q=2 * math.pi)
+    split1 = cs.pack_models_split([sgp], [aux], mod_q=2 * math.pi)
+    twice = cs.pack_models_split([sgp, sgp], [aux, aux], mod_q=2 * math.pi)
+    q0, p0 = (torch.tensor(x, dtype=torch.float32, device=cuda)
+              for x in ics(6, b=500))
+    Q1, P1 = cs.rollout_in_kernel(one, q0, p0, 50, loss_check=True)
+    for pm in (split1, twice):
+        Q, P = cs.rollout_in_kernel(pm, q0, p0, 50, loss_check=True)
+        assert torch.equal(Q.view(torch.int32), Q1.view(torch.int32))
+        assert torch.equal(P.view(torch.int32), P1.view(torch.int32))

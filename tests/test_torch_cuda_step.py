@@ -5,7 +5,9 @@ mode on the CPU, as ``tests/test_pallas_step.py`` runs it).
 float32 orbits decohere between any two summation orders within tens of
 steps, so float32 trajectories are compared at steps 1-4 with the
 tolerances of ``tests/test_pallas_step.py`` (2e-5 after one step, 5e-4
-after three).  The kernel itself needs a card: ``test_torch_cuda_kernel.py``.
+after three).  Split cycling and the loss check at the new q:
+``test_torch_split.py``.  The kernel itself needs a card:
+``test_torch_cuda_kernel.py``.
 """
 
 import pytest
@@ -152,21 +154,17 @@ def test_rollout_in_kernel_cpu_runs_reference():
         np.testing.assert_array_equal(npy(x), npy(y))
 
 
-@pytest.mark.parametrize("mode", ["explicit", "loss_at_new_q", "track_pdiff",
-                                  "mod_p", "sum_kernel", "split"])
+@pytest.mark.parametrize("mode", ["explicit", "track_pdiff", "mod_p",
+                                  "sum_kernel"])
 def test_unsupported_modes_raise(mode):
     sgp, aux = f32_models("sum_per_se" if mode == "sum_kernel" else "per_se")
     ts, ta = jax_models_to_port(sgp, aux)
     pm = cs.pack_models(ts, ta, mod_q=2 * np.pi,
                         mod_p=2 * np.pi if mode == "mod_p" else None)
-    kw = {m: True for m in ("explicit", "loss_at_new_q", "track_pdiff")
-          if m == mode}
+    kw = {m: True for m in ("explicit", "track_pdiff") if m == mode}
     q0, p0 = ics(5, b=8)
     with pytest.raises(NotImplementedError, match="does not cover"):
-        if mode == "split":
-            cs.rollout_model([ts, ts], [ta, ta], f32(q0), f32(p0), 2)
-        else:
-            cs.rollout_in_kernel(pm, f32(q0), f32(p0), 2, **kw)
+        cs.rollout_in_kernel(pm, f32(q0), f32(p0), 2, **kw)
 
 
 def test_validate_rejects_bad_inputs():
@@ -257,6 +255,50 @@ def test_launch_geometry(B, ns, nas, dtype):
                             + 6 * g.teams_per_block
                             + (cs.FIELDS * records + 1) * compute) * elt
     assert g.smem_bytes <= cs.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,ns,nas,n_maps", [
+    (30, 72, 72, 4), (30, 72, 72, 2), (32768, 80, 80, 4), (77, 37, 13, 3),
+    (4096, 1024, 512, 2)])
+def test_launch_geometry_split(B, ns, nas, n_maps, dtype):
+    """Split models: the aux tables of every sub-map, FIELDS_PER_MAP more
+    values a point for each further sub-map and a row of NSCAL constants
+    per sub-map (the Split instance); the team as with one map unless the
+    longer rows would overflow shared memory."""
+    g = cs.launch_geometry(B, ns, nas, dtype, n_maps=n_maps)
+    one = cs.launch_geometry(B, ns, nas, dtype)
+    elt = torch.empty((), dtype=dtype).element_size()
+    compute = g.team * g.teams_per_block
+    records = -(-g.per_lane // cs.PAIRS[dtype]) * cs.PAIRS[dtype]
+    fields = cs.FIELDS + cs.FIELDS_PER_MAP * (n_maps - 1)
+    assert g.smem_bytes == (4 * n_maps * nas + 4 * compute // 32
+                            + 6 * g.teams_per_block
+                            + (fields * records + 1) * compute
+                            + cs.NSCAL * n_maps) * elt
+    assert g.smem_bytes <= cs.SMEM_LIMIT
+    assert g.team <= one.team
+    if g.team < one.team:
+        assert cs.launch_geometry(B, ns, nas, dtype, team=2 * g.team,
+                                  n_maps=n_maps).smem_bytes > cs.SMEM_LIMIT
+    with pytest.raises(ValueError, match="n_maps"):
+        cs.launch_geometry(B, ns, nas, dtype, n_maps=0)
+    # one map checked at the new q runs the Split instance: the table too
+    new_q = cs.launch_geometry(B, ns, nas, dtype, loss_at_new_q=True)
+    assert new_q.smem_bytes == one.smem_bytes + cs.NSCAL * elt
+    assert cs.split_instance(1, True) and not cs.split_instance(1, False)
+
+
+def test_validate_split_columns():
+    """_validate takes the sub-maps' geometry and checks scal's rows."""
+    sgp, aux = f32_models("per_se")
+    ts, ta = jax_models_to_port(sgp, aux)
+    pm = cs.pack_models_split([ts, ts, ts], [ta, ta, ta], mod_q=2 * np.pi)
+    q0, p0 = f32(ics(6, b=8)[0]), f32(ics(6, b=8)[1])
+    assert cs._validate(pm, q0, p0, 3, 5).smem_bytes == cs.launch_geometry(
+        8, pm.ns, pm.nas, torch.float32, n_maps=3).smem_bytes
+    with pytest.raises(ValueError, match="sub-map"):
+        cs._validate(dataclasses.replace(pm, n_maps=2), q0, p0, 3, 5)
 
 
 def test_launch_geometry_forced_team():

@@ -64,7 +64,8 @@ def test_cli_without_jax():
     r = _run("import runpy; sys.argv = ['sympgpr_tpu_torch', 'list'];"
              "runpy.run_module('sympgpr_tpu_torch', run_name='__main__')")
     assert r.returncode == 0, r.stderr
-    assert r.stdout.split() == ["tokamak", "tokamak_kernel", "tokamak_large"]
+    assert r.stdout.split() == ["tokamak", "tokamak_kernel", "tokamak_large",
+                                "tokamak_split", "tokamak_split_kernel"]
 
 
 def test_cli_cuda_device_needs_a_gpu():

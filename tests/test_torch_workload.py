@@ -107,7 +107,5 @@ def test_kernel_backend_matches_jax_pallas(port_kernel, jax_pallas):
 
 
 def test_run_rejects_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Split"):
-        twl.run(TCfg(N=40, nphmap=4), nm=2, device=CPU)
     with pytest.raises(ValueError, match="backend"):
         twl.run(TCfg(N=40), nm=2, backend="pallas", device=CPU)

@@ -15,12 +15,21 @@ the same models and initial conditions:
   first 80 / 512 crossings;
 * initial conditions: the 30 reference test orbits, tiled to the batch.
 
+* the Split tokamak's shape: the crossings of ``tokamak_split``'s
+  configuration (N = 70 for each of 4 sub-maps of a quarter turn, nph =
+  100) at fixed hyperparameters (``HYP_SPLIT``, the order of its CMA-ES
+  fits), aux GPs on the same crossings, its 30 test orbits; and its first
+  sub-map alone at the same shape, through the one-map instance.
+
 Shapes (orbits x steps, N, dtype): the four float32 shapes of
 ``chip_smoke.py``'s ``rollout_shapes`` phase (the bench batch 32768 x 1000
 and the reference size 30 x 1000 at N = 80, ``tokamak_large``'s apply
 30 x 1000 and its rollout batch 4096 x 256 at N = 4096), then 32768 x 1000,
-N = 80 and 30 x 100, N = 4096 in float64.  Each is timed with CUDA events,
-best and median of ``--reps`` after one warm-up.  ``--sweep`` also times
+N = 80 and 30 x 100, N = 4096 in float64, then the Split shape 30 x 4000
+at N = 70 with 4 sub-maps and with the first alone, in float32 (a
+checkout without Split cycling prints the first as refused).  Each is timed with CUDA events, best and median
+of ``--reps`` after one warm-up; ``digest`` is a hash of the trajectory's
+bytes, equal across checkouts whose kernels give the same bits.  ``--sweep`` also times
 every team size the kernel takes, and each shape prints its geometry
 (checkouts whose kernel runs teams of lanes, ``launch_geometry``).
 ``--probe`` times the bench batch once more without the loss check and
@@ -43,38 +52,65 @@ sys.path.insert(0, str(ROOT))
 from chip_smoke import LARGE, ROLLOUT_SHAPES  # noqa: E402
 
 HYP = (0.541, 1.391, 26.55)
-MODELS = {"n80": (80, 80), "n4096": (LARGE["n_train"],
-                                     LARGE["aux_subsample"])}
-SHAPES = [  # name, N, aux points, orbits, steps, dtype
-    *((name, *MODELS[model], batch, nm, "float32")
+HYP_SPLIT = (1.3, 3.0, 7.0)
+SPLIT = dict(N=70, nphmap=4, nph=100, r_scale=0.38, qminmap=0.16,
+             qmaxmap=0.31)  # sympgpr_tpu_torch.__main__.SPLIT
+MODELS = {  # name: training points, aux points, sub-maps
+    "n80": (80, 80, 1), "n4096": (LARGE["n_train"], LARGE["aux_subsample"],
+                                  1),
+    "split_n70": (70, 70, 4), "split_n70_m1": (70, 70, 1)}
+SHAPES = [  # name, model, orbits, steps, dtype
+    *((name, model, batch, nm, "float32")
       for name, (batch, nm, model) in ROLLOUT_SHAPES.items()),
-    ("bench_32768x1000_n80_f64", *MODELS["n80"], 32768, 1000, "float64"),
-    ("f64_30x100_n4096", *MODELS["n4096"], 30, 100, "float64"),
+    ("bench_32768x1000_n80_f64", "n80", 32768, 1000, "float64"),
+    ("f64_30x100_n4096", "n4096", 30, 100, "float64"),
+    ("split_30x4000_n70_m4", "split_n70", 30, 4000, "float32"),
+    # its first sub-map alone, through the one-map instance: the floor of
+    # the cycling's cost at the same shape
+    ("split_30x4000_n70_m1", "split_n70_m1", 30, 4000, "float32"),
 ]
 
 
-def _models(n: int, na: int, dev):
+def _models(model: str, dev):
+    """Deployment-conditioned (sgp, aux) pairs, one per sub-map."""
     import torch
 
     from sympgpr_tpu_torch.gp.model import AuxGP, SympGP
     from sympgpr_tpu_torch.kernels import PER_SE
     from sympgpr_tpu_torch.systems import tokamak as tk
 
-    data = tk.training_data(tk.TokamakConfig(N=n), dev)
-    q, p = data["q"][:, 0], data["p"][:, 0]
-    Q, P = data["Q"][:, 0], data["P"][:, 0]
-    X = torch.stack([q, P], 1)
-    z = torch.cat([p - P, Q - q])
-    sgp = SympGP.create(PER_SE, HYP[:2], HYP[2], 1e-2, X, z)
-    aux = AuxGP.create(PER_SE, HYP[:2], HYP[2], 1e-2,
-                       torch.stack([q[:na], p[:na]], 1), (P - p)[:na])
-    return sgp.for_deployment(1e-3), aux.for_deployment(1e-3)
+    n, na, n_maps = MODELS[model]
+    split = model.startswith("split")
+    cfg = tk.TokamakConfig(**SPLIT) if split else tk.TokamakConfig(N=n)
+    hyp = HYP_SPLIT if split else HYP
+    data = tk.training_data(cfg, dev)
+    pairs = []
+    for m in range(cfg.nphmap):
+        q, p = data["q"][:, m], data["p"][:, m]
+        Q, P = data["Q"][:, m], data["P"][:, m]
+        X = torch.stack([q, P], 1)
+        z = torch.cat([p - P, Q - q])
+        sgp = SympGP.create(PER_SE, hyp[:2], hyp[2], 1e-2, X, z)
+        aux = AuxGP.create(PER_SE, hyp[:2], hyp[2], 1e-2,
+                           torch.stack([q[:na], p[:na]], 1), (P - p)[:na])
+        pairs.append((sgp.for_deployment(1e-3), aux.for_deployment(1e-3)))
+    return pairs[:n_maps]
 
 
-def _ics(dev, dtype, batch: int):
+def _digest(*ts) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _ics(dev, dtype, batch: int, split: bool = False):
     from sympgpr_tpu_torch.systems import tokamak as tk
 
-    (r0, th0), _ = tk.test_initial_conditions(tk.TokamakConfig())
+    cfg = tk.TokamakConfig(**SPLIT) if split else tk.TokamakConfig()
+    (r0, th0), _ = tk.test_initial_conditions(cfg)
     pth0, q0 = tk.ics_to_pth(r0, th0, dev)
     reps = -(-batch // len(r0))
     q0 = q0.repeat(reps)[:batch].to(dtype).contiguous()
@@ -124,29 +160,43 @@ def run_one(tree: str, sweep: bool, probe: bool, reps: int) -> None:
     dev = torch.device("cuda", 0)
     teams = hasattr(cs, "launch_geometry")  # a kernel of teams of lanes
     models = {}
-    for name, n, na, batch, nm, dt in SHAPES:
+    for name, model, batch, nm, dt in SHAPES:
         dtype = getattr(torch, dt)
-        if n not in models:
-            models[n] = _models(n, na, dev)
-        pm = cs.pack_models(*models[n], mod_q=2 * math.pi, dtype=dtype)
-        q0, p0 = _ics(dev, dtype, batch)
-        row = dict(tree=tree, shape=name, ns=pm.ns, nas=pm.nas,
-                   orbits=batch, nm=nm, dtype=dt)
+        if model not in models:
+            models[model] = _models(model, dev)
+        pairs = models[model]
+        split = len(pairs) > 1
+        split_ics = model.startswith("split")
+        row = dict(tree=tree, shape=name, n_maps=len(pairs), orbits=batch,
+                   nm=nm, dtype=dt)
+        if split and not hasattr(cs, "pack_models_split"):
+            row["refused"] = "no Split cycling in this checkout"
+            print(json.dumps(row), flush=True)
+            continue
+        pm = (cs.pack_models_split(*map(list, zip(*pairs)),
+                                   mod_q=2 * math.pi, dtype=dtype)
+              if split else
+              cs.pack_models(*pairs[0], mod_q=2 * math.pi, dtype=dtype))
+        kw = dict(loss_check=True, **({"loss_at_new_q": True} if split
+                                      else {}))
+        q0, p0 = _ics(dev, dtype, batch, split_ics)
+        row.update(ns=pm.ns, nas=pm.nas)
         try:
             best, med = _time(lambda: cs.rollout_in_kernel(
-                pm, q0, p0, nm, loss_check=True), reps)
+                pm, q0, p0, nm, **kw), reps)
         except (ValueError, RuntimeError) as e:
             row["refused"] = str(e)
             print(json.dumps(row), flush=True)
             continue
-        _, P = cs.rollout_in_kernel(pm, q0, p0, nm, loss_check=True)
+        Q, P = cs.rollout_in_kernel(pm, q0, p0, nm, **kw)
         row.update(ms=best, median_ms=med,
                    orbit_steps_per_s=(nm - 1) * batch / (best * 1e-3),
-                   lost=int(torch.isnan(P[-1]).sum()))
+                   lost=int(torch.isnan(P[-1]).sum()), digest=_digest(Q, P))
         if teams:
-            geo = cs.launch_geometry(batch, pm.ns, pm.nas, dtype, torch.cuda
-                                     .get_device_properties(dev)
-                                     .multi_processor_count)
+            geo = cs.launch_geometry(
+                batch, pm.ns, pm.nas, dtype, torch.cuda
+                .get_device_properties(dev).multi_processor_count,
+                **({"n_maps": len(pairs)} if split else {}))
             row["geometry"] = geo.__dict__
         if sweep and teams:
             row["team_ms"] = {}
@@ -154,9 +204,8 @@ def run_one(tree: str, sweep: bool, probe: bool, reps: int) -> None:
             while team <= cs.team_max(dtype):
                 if -(-pm.ns // team) <= cs.P_MAX:
                     row["team_ms"][team] = _time(
-                        lambda: cs._launch(pm, q0, p0, nm, 5,
-                                           loss_check=True, team=team),
-                        max(1, reps // 2))[0]
+                        lambda: cs._launch(pm, q0, p0, nm, 5, team=team,
+                                           **kw), max(1, reps // 2))[0]
                 team *= 2
         if probe and name.startswith("bench") and dt == "float32":
             row["no_loss_check_ms"] = _time(lambda: cs.rollout_in_kernel(
