@@ -15,7 +15,17 @@ per source, all at once) and drives three main paths on the card:
   60 Adam steps over the closed-form NLL gradient in float32, 30 orbits
   over nm=1000, and the same models rolled out in float64 by the plain
   fast path) through the covariance build and contraction (their
-  symmetric, fused modes), triangular matmul, syrk and rollout kernels.
+  symmetric, fused modes), triangular matmul, syrk and rollout kernels;
+* the standard map (``standard_map``, ``standard_map_explicit``: k=2,
+  N=20, 30 orbits over nm=100) through the rollout kernel's mod_p / pdiff
+  mode and Algorithm 2, and in float64 on the plain fast path; the three
+  pendulum workloads at their reference configurations (nm=1000), kernel
+  and float64; ``standard_map_large`` (N=4096 exact pairs, 60 Adam steps,
+  30 orbits over 200 rows) through kernels 2-5 and the mod_p / pdiff mode.
+  ``modes_kernel_vs_plain`` holds the explicit update, Algorithm 2 and
+  mod_p / pdiff against the plain version on these models, shows that its
+  gates fail two wrong trajectories, and times each mode at 32768 x 1000
+  (N=20) and at 30 x 200 (N=4096).
 
 Each kernel is held against its plain PyTorch version at the main path's
 shapes, and both are timed with CUDA events around one call (best of 3),
@@ -90,6 +100,8 @@ LOST_SLACK_F32 = 1
 # 2.0e-3).  A rollout without one lane's points lies at 22; the phase
 # checks that the bound rejects it.
 ROLLOUT_NOISE_FACTOR = 3
+# the packed columns a float64 copy of a float32 pack converts
+_COLUMNS = ("uq", "uP", "a0", "a1", "auxq", "auxp", "auxa", "scal")
 
 # Peaks of one H100 SXM at 700 W (NVIDIA's data sheet): the least time a
 # kernel could take is the larger of its bytes over the memory rate and its
@@ -109,6 +121,15 @@ FLOP_NEWTON = 15  # per Newton iteration
 FLOP_Q = 11       # q update
 FLOP_AUX = 11     # per aux point
 FLOP_ORBIT = 250  # per orbit and step: the Newton updates, the loss solve
+# the explicit update's P sum per pair (dP, dP^2, the exponent, c0 + c1 dP,
+# times A B, the add), and Algorithm 2's per point: sin/cos of h(u - q),
+# s, s', s'' and a0 (s'' - s'^2) A; its q update a1 h B
+FLOP_EXPLICIT_P = 9
+FLOP_SUM_SETUP = 12
+FLOP_SUM_P = 3
+FLOP_SUM_Q = 8
+# per orbit and step without Newton: sin/cos of h(q), the wraps, pdiff
+FLOP_ORBIT_EXPLICIT = 40
 
 
 def bound(nbytes: float, flops: float, fp64: bool = False,
@@ -123,18 +144,32 @@ def bound(nbytes: float, flops: float, fp64: bool = False,
 
 
 def rollout_bound(B: int, nm: int, ns: int, nas: int, elt: int,
-                  iters: int = 5, n_maps: int = 1) -> dict:
+                  iters: int = 5, n_maps: int = 1, mode: str = "implicit",
+                  pdiff: bool = False) -> dict:
     """The rollout's work for B orbits over nm steps: each column (of each
-    of ``n_maps`` sub-maps) read once, Q and P written once; per
-    orbit-step, with one sub-map of ``ns`` training and ``nas`` aux
-    points, (1 + iters) exps per training point (A B = exp(-(s + dP^2 / 2
-    ly^2)) once per Newton iteration and once for the q update) and one
-    per aux point."""
+    of ``n_maps`` sub-maps) read once, Q and P (and with ``pdiff`` D)
+    written once; per orbit-step, with one sub-map of ``ns`` training and
+    ``nas`` aux points: the implicit map (1 + iters) exps per training
+    point (A B = exp(-(s + dP^2 / 2 ly^2)) once per Newton iteration and
+    once for the q update) and one per aux point; the explicit update
+    (``mode="explicit"``) two per training point (its P sum and the q
+    update) and none for aux points; Algorithm 2 (``"sum"``) two (A for P,
+    B for the q update)."""
     steps = (nm - 1) * B
-    exps = steps * ((1 + iters) * ns + nas)
-    flops = steps * (ns * (FLOP_SETUP + iters * FLOP_NEWTON + FLOP_Q)
-                     + nas * FLOP_AUX + FLOP_ORBIT)
-    nbytes = elt * (n_maps * (4 * ns + 3 * nas) + 2 * B + 2 * nm * B)
+    if mode == "implicit":
+        exps = steps * ((1 + iters) * ns + nas)
+        flops = steps * (ns * (FLOP_SETUP + iters * FLOP_NEWTON + FLOP_Q)
+                         + nas * FLOP_AUX + FLOP_ORBIT)
+    elif mode == "explicit":
+        exps = steps * 2 * ns
+        flops = steps * (ns * (FLOP_SETUP + FLOP_EXPLICIT_P + FLOP_Q)
+                         + FLOP_ORBIT_EXPLICIT)
+    else:
+        exps = steps * 2 * ns
+        flops = steps * (ns * (FLOP_SUM_SETUP + FLOP_SUM_P + FLOP_SUM_Q)
+                         + FLOP_ORBIT_EXPLICIT)
+    nbytes = elt * (n_maps * (4 * ns + 3 * nas) + 2 * B
+                    + (3 if pdiff else 2) * nm * B)
     ms, by = bound(nbytes, flops, elt == 8, 0.0 if elt == 8 else exps)
     return dict(bound_ms=ms, bound_by=by, exps=exps, flops=flops,
                 bytes=nbytes)
@@ -208,8 +243,15 @@ def cov_bound(N: int, elt: int, fused: bool, fwd: bool,
                 bytes_ms=1e3 * nbytes / HBM_BYTES_PER_S)
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}, default=float), flush=True)
+    """One JSON line for a phase; ``t_s`` is the seconds since the script
+    started, so the lines give each phase's share of the wall time."""
+    print(json.dumps({"phase": phase, **kw,
+                      "t_s": time.perf_counter() - T0}, default=float),
+          flush=True)
 
 
 def sync() -> None:
@@ -329,10 +371,19 @@ def _eosc_lost(Q, P):
             int(torch.isnan(P[-1]).sum()))
 
 
-def _max_diff(a, b) -> float:
+def _circ(d, period):
+    """A difference of two angles on their circle of ``period``: in
+    [-period / 2, period / 2) (as it is where ``period`` is None)."""
+    if period is None:
+        return d
+    return torch.remainder(d + period / 2, period) - period / 2
+
+
+def _max_diff(a, b, period=None) -> float:
     """max |a - b| where positions NaN in both count 0 and NaN in one
-    count inf (a lost orbit must be lost in both)."""
-    d = (a - b).abs()
+    count inf (a lost orbit must be lost in both); on the circle of
+    ``period`` where one is given."""
+    d = _circ(a - b, period).abs()
     d = torch.where(torch.isnan(a) & torch.isnan(b), 0.0, d)
     return float(d.nan_to_num(math.inf).max())
 
@@ -763,8 +814,7 @@ def _rollout_noise_check(pm, q0, p0, sm_count) -> dict:
     sync()
     Qr, Pr = cs.rollout_reference(pm, q0, p0, 3, loss_check=True)
     exact = dataclasses.replace(
-        pm, **{f: getattr(pm, f).double() for f in (
-            "uq", "uP", "a0", "a1", "auxq", "auxp", "auxa", "scal")})
+        pm, **{f: getattr(pm, f).double() for f in _COLUMNS})
     Qx, Px = cs.rollout_reference(exact, q0.double(), p0.double(), 3,
                                   loss_check=True)
     geo = cs.launch_geometry(q0.shape[0], pm.ns, pm.nas, q0.dtype, sm_count)
@@ -1181,6 +1231,484 @@ def phase_escalation(dev):
     assert np.isfinite(hist[-1]) and np.isfinite(mse)
 
 
+# --- the standard map and the pendulum ---------------------------------------
+
+# gates: training error and the kernel backend's one-step MSE
+# (tests/test_workloads.py test_standard_map_*, the Pallas ones); the
+# float64 one-step MSE of RESULTS.md:13-14 (CPU, float64), held within 2x
+GATE_TRAIN_ERR_STDMAP = 1e-10
+GATES_STDMAP_KERNEL = {"implicit": 1e-4, "explicit": 1e-5}
+RESULTS_STDMAP = {"implicit": 5.7e-8, "explicit": 4.6e-13}
+# the pendulum workloads at RESULTS.md:9-11's configurations: float64 mean
+# Eosc within 2x of the row; float32 kernel backend under the Pallas gates
+# of tests/test_workloads.py; period_ratio within 0.15 of an integer in
+# [0.5, 4.5]
+PENDULUM = {  # workload: config fields, RESULTS.md Eosc, float32 Eosc gate
+    "implicit": ({}, 6.4e-6, 2e-3),
+    "explicit": ({"Nm": 70, "sig2_n": 1e-10}, 0.04, 0.2),
+    "period_unknown": ({"N": 50, "Nm": 100, "sig2_n": 1e-10}, 2.9e-5,
+                       2e-2),
+}
+RESULTS_EOSC_SE = 1.1e-3  # RESULTS.md:9, the symplectic-Euler comparator
+# standard_map_large at the JAX CLI's configuration; VERDICT.md:80 gives
+# its one-step MSE from a TPU run (quality only, not a time)
+STDMAP_LARGE = dict(n_train=4096, nm=200, steps=60, sig2n=1e-2,
+                    aux_subsample=512)
+GATE_STDMAP_LARGE_MSE = 1e-4
+VERDICT_STDMAP_LARGE_MSE_TPU = 2.3e-6
+ATOL_F64_STEP = 1e-12  # float64, one step from each of 100 plain rows
+TWO_PI_F32 = float(np.float32(2 * math.pi))  # 2 pi rounded up in float32
+MODES_BATCH = 32768    # orbits and steps of the large-batch timing
+MODES_STEPS = 1000
+# float32 kernel against the plain version at steps 1-2 on the standard
+# map's models (|alpha| ~ 9e3 at jitter 1e-5): two float32 summation
+# orders lie 1.6e-4 to 5.8e-4 apart there on an H100, above ATOL_F32
+ATOL_F32_STDMAP = 1e-3
+# float32 statistics over the whole run: mean Eosc (pendulum)
+STATS_RTOL_F32 = 0.1
+
+
+def _counts_zero() -> None:
+    _large_counts(zero=True)
+
+
+def phase_stdmap_main(dev):
+    """standard_map and standard_map_explicit (k = 2, N = 20, 30 orbits,
+    nm = 100) through the kernel backend (float32, mod_p and pdiff in the
+    kernel; the explicit method's Algorithm 2) and the float64 generic
+    backend."""
+    from sympgpr_tpu_torch.ops import cuda_step
+    from sympgpr_tpu_torch.systems.standard_map import StandardMapConfig
+    from sympgpr_tpu_torch.workloads import standard_map as wl
+
+    cfg = StandardMapConfig()
+    res, models = {}, {}
+    cuda_step.LAUNCHES = 0
+    for method in ("implicit", "explicit"):
+        out = wl.run(cfg, method=method, backend="kernel", device=dev)
+        t = out["traj"]
+        P = t.p[1:].cpu().numpy()
+        res[method] = dict(
+            training_error=out["training_error"],
+            one_step_mse=out["one_step_mse"],
+            gate=GATES_STDMAP_KERNEL[method], t_train=out["t_train"],
+            t_apply=out["t_apply"], hyp=out["hyp"].tolist(),
+            P_min=float(np.nanmin(P)), P_max=float(np.nanmax(P)),
+            D_finite=bool(torch.isfinite(t.pdiff).all()),
+            dtype=str(t.q.dtype), shape=list(t.q.shape))
+        models[method] = out["models"]
+    launches = cuda_step.LAUNCHES
+    for method in ("implicit", "explicit"):
+        out = wl.run(cfg, method=method, backend="generic", device=dev)
+        res[method].update(
+            f64_one_step_mse=out["one_step_mse"],
+            f64_training_error=out["training_error"],
+            f64_t_apply=out["t_apply"],
+            results_row=RESULTS_STDMAP[method],
+            f64_dtype=str(out["traj"].q.dtype))
+    emit("stdmap_main", launches=launches, **res)
+    assert launches == 2, "the standard map launched no rollout kernel"
+    for method, r in res.items():
+        assert r["training_error"] < GATE_TRAIN_ERR_STDMAP, (method, r)
+        assert r["one_step_mse"] < r["gate"], (method, r)
+        # wrapped into [0, 2 pi): float32 rounds the top of it to fl(2 pi)
+        assert 0.0 <= r["P_min"] and r["P_max"] <= TWO_PI_F32, (method, r)
+        assert r["D_finite"] and r["dtype"] == "torch.float32", (method, r)
+        assert r["f64_dtype"] == "torch.float64", (method, r)
+        ratio = r["f64_one_step_mse"] / r["results_row"]
+        assert 0.5 <= ratio <= 2.0, (method, r)
+    return models, launches
+
+
+def phase_pendulum_main(dev):
+    """The three pendulum workloads at RESULTS.md:9-11's configurations
+    (nm = 1000): the kernel backend (float32; the explicit workload's sum
+    kernel through Algorithm 2) and the float64 generic backend (the
+    implicit workload with its one-map-time reference and the
+    symplectic-Euler comparator)."""
+    import importlib
+
+    from sympgpr_tpu_torch.ops import cuda_step
+    from sympgpr_tpu_torch.systems.pendulum import PendulumConfig
+
+    res, models = {}, {}
+    cuda_step.LAUNCHES = 0
+    for name, (fields, _, _) in PENDULUM.items():
+        wl = importlib.import_module(
+            f"sympgpr_tpu_torch.workloads.pendulum_{name}")
+        kw = (dict(with_reference=False, with_comparator=False)
+              if name == "implicit" else {})
+        out = wl.run(PendulumConfig(**fields), backend="kernel", **kw,
+                     device=dev)
+        res[name] = dict(training_error=out["training_error"],
+                         mean_Eosc=float(np.nanmean(out["Eosc"])),
+                         t_train=out["t_train"], t_apply=out["t_apply"],
+                         hyp=out["hyp"].tolist(),
+                         dtype=str(out["traj"].q.dtype),
+                         shape=list(out["traj"].q.shape))
+        if "period_ratio" in out:
+            res[name]["period_ratio"] = out["period_ratio"]
+        models[name] = out["models"]
+    launches = cuda_step.LAUNCHES
+    for name, (fields, _, _) in PENDULUM.items():
+        wl = importlib.import_module(
+            f"sympgpr_tpu_torch.workloads.pendulum_{name}")
+        out = wl.run(PendulumConfig(**fields), backend="generic",
+                     device=dev)
+        r = res[name]
+        r.update(f64_mean_Eosc=float(np.nanmean(out["Eosc"])),
+                 f64_t_apply=out["t_apply"],
+                 f64_dtype=str(out["traj"].q.dtype))
+        for k in ("gd", "Eosc_se"):
+            if k in out:
+                r[f"f64_mean_{k}"] = float(np.nanmean(out[k]))
+        if "t_apply_se" in out:
+            r["f64_t_apply_se"] = out["t_apply_se"]
+        if "period_ratio" in out:
+            r["f64_period_ratio"] = out["period_ratio"]
+    emit("pendulum_main", launches=launches, results_rows={
+        k: v[1] for k, v in PENDULUM.items()}, **res)
+    assert launches == 3, "the pendulum launched no rollout kernel"
+    for name, (_, eosc_row, gate32) in PENDULUM.items():
+        r = res[name]
+        assert r["dtype"] == "torch.float32", (name, r)
+        assert r["f64_dtype"] == "torch.float64", (name, r)
+        assert r["mean_Eosc"] < gate32, (name, r)
+        assert 0.5 <= r["f64_mean_Eosc"] / eosc_row <= 2.0, (name, r)
+        for k in ("period_ratio", "f64_period_ratio"):
+            if k in r:
+                ratio = r[k]
+                assert abs(ratio - round(ratio)) < 0.15, (name, r)
+                assert 0.5 <= ratio <= 4.5, (name, r)
+    assert 0.5 <= res["implicit"]["f64_mean_Eosc_se"] / RESULTS_EOSC_SE \
+        <= 2.0, res["implicit"]
+    return models, launches
+
+
+def phase_stdmap_large(dev):
+    """standard_map_large (N = 4096 exact pairs, 60 Adam steps in float32
+    through kernels 2-5, 30 orbits over 200 rows through the rollout
+    kernel's mod_p / pdiff mode)."""
+    from sympgpr_tpu_torch.workloads import standard_map as wl
+
+    _counts_zero()
+    t0 = time.perf_counter()
+    out = wl.run_large(**STDMAP_LARGE, device=dev)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = _large_counts()
+    models = out.pop("models")
+    fit_ms = (1e3 * (out["fit_s"] - out["fit_escalation_s"])
+              / STDMAP_LARGE["steps"])
+    res = dict(out, wall_s=wall, fit_ms_per_step=fit_ms, launches=launches,
+               gate_one_step_mse=GATE_STDMAP_LARGE_MSE,
+               verdict_one_step_mse_tpu_run=VERDICT_STDMAP_LARGE_MSE_TPU)
+    emit("stdmap_large", **res)
+    for k, n in launches.items():
+        assert n > 0, f"standard_map_large launched no {k} kernel"
+    assert out["nll_decreased"], res
+    assert out["finite_frac"] == 1.0 and out["pdiff_finite"], res
+    assert out["one_step_mse"] < GATE_STDMAP_LARGE_MSE, res
+    assert out["dtype"] == "float32" and models[0].X.device.type == "cuda"
+    return models, launches
+
+
+def _periods(pm, n_out: int) -> list:
+    """The circle of each rollout output: Q's mod_q, P's mod_p and none
+    for pdiff's unwrapped D."""
+    return [pm.mod_q, pm.mod_p, None][:n_out]
+
+
+def _one_step_along(pm, traj, kw):
+    """The kernel's one step from each of the plain trajectory's rows 0 ..
+    nm - 2 (one launch over all of them as orbits) against the plain
+    trajectory's next rows: the largest difference in Q, P and, with
+    pdiff, the step's unwrapped increment."""
+    from sympgpr_tpu_torch.ops import cuda_step as cs
+
+    q, p = (t[:-1].reshape(-1).contiguous() for t in traj[:2])
+    got = cs.rollout_in_kernel(pm, q, p, 2, iters=8, **kw)
+    errs = [_max_diff(g[1], t[1:].reshape(-1), per)
+            for g, t, per in zip(got[:2], traj[:2], _periods(pm, 2))]
+    if len(traj) == 3:  # pdiff's increment of each step
+        errs.append(_max_diff(got[2][1] - got[2][0],
+                              (traj[2][1:] - traj[2][:-1]).reshape(-1)))
+    return max(errs)
+
+
+def _f32_vs_f64(pm, q, p, kw, got, ref) -> dict:
+    """A float32 kernel trajectory ``got`` and the plain version's ``ref``
+    from the same columns and ICs, each held against float64 on the same
+    float32 columns: the L2 distance at steps 1-2 to the float64 rollout
+    (``err_*``), and the L2 residual of every later row against one
+    float64 step from the row before it in the same trajectory
+    (``residual_*``; each trajectory's own, so the chaos of the free
+    orbits does not enter).  NaN entries are left out, angles compared on
+    their circles; ``max_abs_err_steps_1_2`` is the kernel against the
+    plain version."""
+    import dataclasses
+
+    from sympgpr_tpu_torch.ops import cuda_step as cs
+
+    exact = dataclasses.replace(pm, **{f: getattr(pm, f).double()
+                                       for f in _COLUMNS})
+    periods = _periods(pm, len(got))
+    x = cs.rollout_reference(exact, q.double(), p.double(), 3, iters=8,
+                             **kw)
+
+    def l2(pairs) -> float:
+        d = torch.cat([_circ(a.double() - b, per).reshape(-1)
+                       for (a, b), per in zip(pairs, periods)])
+        return float(d[~torch.isnan(d)].norm())
+
+    def err(out) -> float:
+        return l2([(o[1:3], e[1:3]) for o, e in zip(out, x)])
+
+    def residual(traj) -> float:
+        rows = [t[:-1].reshape(-1).double() for t in traj[:2]]
+        step = cs.rollout_reference(exact, *rows, 2, iters=8, **kw)
+        pairs = [(t[1:].reshape(-1), s[1]) for t, s in zip(traj[:2], step)]
+        if len(traj) == 3:  # pdiff's increment of each step
+            D = traj[2].double()
+            pairs.append(((D[1:] - D[:-1]).reshape(-1),
+                          step[2][1] - step[2][0]))
+        return l2(pairs)
+
+    r = dict(
+        max_abs_err_steps_1_2=max(
+            _max_diff(g[1:3], t[1:3], per)
+            for g, t, per in zip(got, ref, periods)),
+        nan_pattern_equal=all(torch.equal(torch.isnan(g), torch.isnan(t))
+                              for g, t in zip(got, ref)),
+        err_kernel=err(got), err_plain=err(ref),
+        residual_kernel=residual(got), residual_plain=residual(ref))
+    r["err_bound"] = ROLLOUT_NOISE_FACTOR * r["err_plain"]
+    r["residual_bound"] = ROLLOUT_NOISE_FACTOR * r["residual_plain"]
+    r["err"] = err  # for the wrong trajectories; popped before printing
+    return r
+
+
+def _large_mode_check(dev, sgp, aux, ics) -> dict:
+    """standard_map_large's rollout (mod_p / pdiff, N=4096: the float32
+    instance with 16 points a lane) against its plain version on the
+    workload's models and ICs over its 200 rows: float32 by
+    ``_f32_vs_f64``, the kernel's errors within 3x the plain version's;
+    float64 one step from each of the plain version's 200 rows within
+    ATOL_F64, as ``rollout_shapes`` holds tokamak_large's float64 at
+    N=4096."""
+    from sympgpr_tpu_torch.ops import cuda_step as cs
+
+    two_pi = 2 * math.pi
+    kw = dict(track_pdiff=True)
+    nm = STDMAP_LARGE["nm"]
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        pm = cs.pack_models(sgp, aux, mod_q=two_pi, mod_p=two_pi,
+                            dtype=dtype)
+        q, p = (t.to(dtype) for t in ics)
+        got = cs.rollout_in_kernel(pm, q, p, nm, iters=8, **kw)
+        sync()
+        ref = cs.rollout_reference(pm, q, p, nm, iters=8, **kw)
+        if dtype == torch.float32:
+            out["f32"] = _f32_vs_f64(pm, q, p, kw, got, ref)
+            out["f32"].pop("err")
+        else:
+            out["f64"] = dict(
+                step_err_200_rows=_one_step_along(pm, ref, kw),
+                nan_pattern_equal=all(
+                    torch.equal(torch.isnan(g), torch.isnan(t))
+                    for g, t in zip(got, ref)))
+    out["ns"] = pm.ns
+    return out
+
+
+def _ulp_sensitivity(pm, q0, p0, nm, kw) -> list:
+    """How far the plain float64 rollout moves when p0 moves by one ulp:
+    its largest difference at steps 1, 10, 50 and nm - 1."""
+    from sympgpr_tpu_torch.ops import cuda_step as cs
+
+    a = cs.rollout_reference(pm, q0, p0, nm, 8, **kw)
+    b = cs.rollout_reference(pm, q0, torch.nextafter(p0, p0 + 1), nm, 8,
+                             **kw)
+    return [max(_max_diff(x[i], y[i]) for x, y in zip(a, b))
+            for i in (1, 10, 50, nm - 1)]
+
+
+def _sum_q_with_A(pm, q, P):
+    """A wrong Algorithm 2 on purpose: its q update with the q-side factor
+    A left in (dq = sum a1 h A B), at the plain version's P."""
+    from sympgpr_tpu_torch.maps import fast_apply
+    from sympgpr_tpu_torch.ops import cuda_step as cs
+
+    sgp, _ = cs._models_of(pm)
+    A, _, _ = fast_apply._q_factors("per_se", sgp.X[None, :, 0] - q[:, None],
+                                    sgp.params)
+    ily2 = 1.0 / sgp.params[1] ** 2
+    dP = sgp.X[None, :, 1] - P[:, None]
+    a1 = pm.a1[: pm.ns]
+    Q = q + torch.sum(a1 * (ily2 - dP**2 * ily2**2)
+                      * torch.exp(-dP**2 * ily2 / 2) * A, -1)
+    if pm.mod_q is not None:
+        Q = torch.remainder(Q, pm.scal[0, 5])
+    return Q
+
+
+def phase_modes_kernel_vs_plain(dev, stdmap, pendulum, large):
+    """The kernel's explicit update, Algorithm 2 and mod_p / pdiff modes
+    against rollout_reference on the workloads' models (deployment jitter
+    1e-5, as the workloads): float64 one step from each of 100 rows of the
+    plain trajectory within 1e-12 (the free-running orbits of the standard
+    map are chaotic: one ulp of p0 moves the plain version itself by O(1)
+    within 50 steps, printed as ``plain_ulp_sensitivity``); float32 at
+    steps 1-2 against the float64 rollout of the same float32 columns, the
+    kernel's L2 error within 3x the plain version's (the standard map's
+    models at jitter 1e-5 carry |alpha| ~ 9e3, and each float32 version
+    lies 1e-4 to 3e-4 from float64 there), and the kernel within
+    ATOL_F32_STDMAP of the plain version (the pendulum's within ATOL_F32);
+    over the whole run, each trajectory's residual against one float64
+    step from its own rows within 3x the plain version's, and the
+    pendulum's mean Eosc.  Two wrong trajectories the gates must fail:
+    pdiff summed from the wrapped P, and Algorithm 2's q update with the A
+    factor left in.  standard_map_large's rollout held by
+    ``_large_mode_check``.  Each mode timed at 32768 x 1000 at N=20 and
+    the mod_p mode at 30 x 200 at N=4096."""
+    from sympgpr_tpu_torch.eval import metrics
+    from sympgpr_tpu_torch.ops import cuda_step as cs
+    from sympgpr_tpu_torch.systems import pendulum as pend
+    from sympgpr_tpu_torch.systems.standard_map import StandardMapConfig
+    from sympgpr_tpu_torch.workloads import standard_map as wsm
+
+    two_pi = 2 * math.pi
+    (s_imp, a_imp), (s_exp, _) = stdmap["implicit"], stdmap["explicit"]
+    s_pen, _ = pendulum["explicit"]
+    sd_imp, ad_imp = s_imp.for_deployment(1e-5), a_imp.for_deployment(1e-5)
+    sd_exp, sd_pen = s_exp.for_deployment(1e-5), s_pen.for_deployment(1e-5)
+    # mode: (sgp, aux, mod_q, mod_p, rollout keywords, ICs, float32 rows:
+    # the workload's nm)
+    sm_ics = wsm.initial_conditions(StandardMapConfig(), dev)
+    pen_ics = tuple(torch.tensor(x, dtype=torch.float64, device=dev)
+                    for x in pend.test_initial_conditions(
+                        pend.PendulumConfig()))
+    modes = {
+        "implicit_mod_p_pdiff": (sd_imp, ad_imp, two_pi, two_pi,
+                                 dict(track_pdiff=True), sm_ics, 100),
+        "explicit_product": (sd_imp, None, two_pi, two_pi,
+                             dict(explicit=True, track_pdiff=True), sm_ics,
+                             100),
+        "sum_stdmap": (sd_exp, None, None, two_pi, dict(track_pdiff=True),
+                       sm_ics, 100),
+        "sum_pendulum": (sd_pen, None, two_pi, None, {}, pen_ics, NM),
+    }
+    res, wrong = {}, {}
+    for name, (sgp, aux, mod_q, mod_p, kw, (q0, p0), nm32) in modes.items():
+        r = res[name] = {"n_train": sgp.n_train, "f32_rows": nm32}
+        for dtype in (torch.float64, torch.float32):
+            pm = cs.pack_models(sgp, aux, mod_q=mod_q, mod_p=mod_p,
+                                dtype=dtype)
+            q, p = q0.to(dtype), p0.to(dtype)
+            nm = 100 if dtype == torch.float64 else nm32
+            got = cs.rollout_in_kernel(pm, q, p, nm, iters=8, **kw)
+            sync()
+            ref = cs.rollout_reference(pm, q, p, nm, iters=8, **kw)
+            nan_equal = all(torch.equal(torch.isnan(g), torch.isnan(t))
+                            for g, t in zip(got, ref))
+            # the wrong trajectories, from the plain version's: Q of step
+            # 1 with A in Algorithm 2's q update; pdiff summed from the
+            # wrapped P, which telescopes to the wrapped P itself
+            bad = {}
+            if name.startswith("sum"):
+                Qw = ref[0].clone()
+                Qw[1] = _sum_q_with_A(pm, q, ref[1][1])
+                bad["sum_q_with_A"] = (Qw,) + tuple(ref[1:])
+            if mod_p is not None:
+                bad["pdiff_from_wrapped_P"] = (ref[0], ref[1], ref[1])
+            if dtype == torch.float64:
+                per = _periods(pm, len(ref))
+                for k, w in bad.items():  # rows 1-2 of the one-step gate
+                    wrong[f"{k}_f64_{name}"] = (max(
+                        _max_diff(a[1:3], b[1:3], c)
+                        for a, b, c in zip(w, ref, per)), ATOL_F64_STEP)
+                r["f64_step_err_100_rows"] = _one_step_along(pm, ref, kw)
+                r["f64_trajectory_err_100_steps"] = max(
+                    _max_diff(g, t, c) for g, t, c in zip(got, ref, per))
+                r["f64_nan_pattern_equal"] = nan_equal
+                r["plain_ulp_sensitivity_steps_1_10_50_99"] = \
+                    _ulp_sensitivity(pm, q, p, 100, kw)
+                continue
+            f32 = _f32_vs_f64(pm, q, p, kw, got, ref)
+            err = f32.pop("err")
+            r.update({f"f32_{k}": v for k, v in f32.items()})
+            for k, w in bad.items():
+                wrong[f"{k}_f32_{name}"] = (err(w), f32["err_bound"])
+            if mod_p is None:
+                H = [metrics.pendulum_energy(t[0], t[1]) for t in (got, ref)]
+                r["f32_mean_Eosc_kernel_plain"] = [
+                    float(np.nanmean(metrics.energy_oscillation(h).cpu()))
+                    for h in H]
+
+    # standard_map_large's rollout against its plain version
+    s_large, a_large = large
+    large_check = _large_mode_check(dev, s_large, a_large, sm_ics)
+
+    # timings: 32768 x 1000 at N=20, and 30 x 200 at N=4096
+    timing = {}
+    shapes = [
+        ("implicit_mod_p_pdiff_32768x1000_n20", sd_imp, ad_imp, two_pi,
+         two_pi, dict(track_pdiff=True), MODES_BATCH, MODES_STEPS,
+         "implicit"),
+        ("explicit_product_32768x1000_n20", sd_imp, None, two_pi, two_pi,
+         dict(explicit=True, track_pdiff=True), MODES_BATCH, MODES_STEPS,
+         "explicit"),
+        ("sum_32768x1000_n20", sd_exp, None, None, two_pi,
+         dict(track_pdiff=True), MODES_BATCH, MODES_STEPS, "sum"),
+        ("implicit_mod_p_pdiff_30x200_n4096", s_large, a_large, two_pi,
+         two_pi, dict(track_pdiff=True), 30, 200, "implicit"),
+    ]
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    for (name, sgp, aux, mod_q, mod_p, kw, batch, nm, mode) in shapes:
+        pm = cs.pack_models(sgp, aux, mod_q=mod_q, mod_p=mod_p)
+        reps = -(-batch // 30)
+        q = sm_ics[0].repeat(reps)[:batch].float().contiguous()
+        p = sm_ics[1].repeat(reps)[:batch].float().contiguous()
+        ms = _time(lambda: cs.rollout_in_kernel(pm, q, p, nm, iters=8, **kw))
+        plain_ms = _time(lambda: cs.rollout_reference(pm, q, p, nm, iters=8,
+                                                      **kw), reps=1)
+        b = rollout_bound(batch, nm, sgp.n_train,
+                          aux.X.shape[0] if aux is not None else 0, 4,
+                          iters=8, mode=mode, pdiff=True)
+        timing[name] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"],
+            bound_by=b["bound_by"], bound_share=b["bound_ms"] / ms,
+            orbit_steps_per_s=(nm - 1) * batch / (ms * 1e-3),
+            geometry=cs.launch_geometry(batch, pm.ns, pm.nas, torch.float32,
+                                        sm_count).__dict__)
+    emit("modes_kernel_vs_plain", modes=res, wrong_trajectories=wrong,
+         large_n4096=large_check, timing=timing, f64_atol=ATOL_F64_STEP,
+         f32_atol=ATOL_F32, f32_atol_stdmap=ATOL_F32_STDMAP)
+    for name, r in res.items():
+        assert r["f64_nan_pattern_equal"] and r["f32_nan_pattern_equal"], r
+        assert r["f64_step_err_100_rows"] <= ATOL_F64_STEP, (name, r)
+        assert r["f32_err_kernel"] <= r["f32_err_bound"], (name, r)
+        assert r["f32_residual_kernel"] <= r["f32_residual_bound"], (name, r)
+        if name == "sum_pendulum":  # regular orbits, |alpha| ~ 1
+            assert r["f64_trajectory_err_100_steps"] <= ATOL_F64, r
+            assert r["f32_max_abs_err_steps_1_2"] <= ATOL_F32, r
+            k, pl = r["f32_mean_Eosc_kernel_plain"]
+            assert abs(k - pl) <= STATS_RTOL_F32 * pl, (name, r)
+        else:
+            assert r["f32_max_abs_err_steps_1_2"] <= ATOL_F32_STDMAP, r
+    f32, f64 = large_check["f32"], large_check["f64"]
+    assert f32["nan_pattern_equal"] and f64["nan_pattern_equal"], large_check
+    assert f32["err_kernel"] <= f32["err_bound"], large_check
+    assert f32["residual_kernel"] <= f32["residual_bound"], large_check
+    assert f64["step_err_200_rows"] <= ATOL_F64, large_check
+    # the gates fail both wrong trajectories
+    for k, (e, gate) in wrong.items():
+        assert e > gate, (k, e, gate)
+    assert len(wrong) == 10, wrong
+    return res, timing
+
+
 def main() -> None:
     dev, smi = phase_device()
     # the plain versions are the yardstick: full float32 matrix products
@@ -1199,16 +1727,23 @@ def main() -> None:
     phase_rollout_shapes(dev, pm32, large_models)
     del large_models
     phase_escalation(dev)
+    stdmap, stdmap_launches = phase_stdmap_main(dev)
+    pendulum, pendulum_launches = phase_pendulum_main(dev)
+    sm_large, sm_large_launches = phase_stdmap_large(dev)
+    phase_modes_kernel_vs_plain(dev, stdmap, pendulum, sm_large)
     b = rollout_bound(30, NM, pm32.ns, pm32.nas, 4)
     rows = [{"name": "rollout_step", "route": "cuda", "source": KERNEL_SOURCE,
-             "replaces": REPLACES, "launches": launches + split_launches,
+             "replaces": REPLACES,
+             "launches": launches + split_launches + stdmap_launches
+             + pendulum_launches + sm_large_launches["rollout"],
              "max_abs_err": err32, "ms": ms, "plain_ms": plain_ms,
              "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
              "library_ms": None}]
     for name, (source, replaces) in LARGE_SOURCES.items():
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces,
-                     "launches": large_launches[name], **large[name]})
+                     "launches": large_launches[name]
+                     + sm_large_launches[name], **large[name]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,12 @@
   python -m sympgpr_tpu_torch run tokamak_split --device cuda
   python -m sympgpr_tpu_torch run tokamak_split_kernel --device cuda
   python -m sympgpr_tpu_torch run tokamak_large --n 4096 --steps 40 --device cuda
+  python -m sympgpr_tpu_torch run standard_map_kernel --device cuda
+  python -m sympgpr_tpu_torch run standard_map_large --device cuda
+  python -m sympgpr_tpu_torch run pendulum_explicit_kernel --device cuda
+
+Each workload without ``_kernel`` rolls out on the float64 fast path; with
+it, through the fused rollout in float32.
 
 ``--device`` defaults to ``cuda`` and fails when no GPU is present; pass
 ``--device cpu`` to run on the CPU.
@@ -32,14 +38,33 @@ WORKLOADS = {
     "tokamak_split_kernel": ("kernel", SPLIT, 4000, "cmaes"),
     "tokamak_large": None,
 }
+# the standard map and the pendulum at the JAX CLI's configurations: name
+# -> (workload module, backend, run keywords, config fields, nm)
+OTHERS = {
+    **{f"standard_map{m}{k}": ("standard_map", b,
+                               {"method": m[1:] or "implicit"}, {}, 100)
+       for m in ("", "_explicit")
+       for k, b in (("", "generic"), ("_kernel", "kernel"))},
+    **{f"pendulum_{name}{k}": (f"pendulum_{name}", b, {}, fields, 1000)
+       for name, fields in (("implicit", {}),
+                            ("explicit", {"Nm": 70, "sig2_n": 1e-10}),
+                            ("period_unknown", {"N": 50, "Nm": 100,
+                                                "sig2_n": 1e-10}))
+       for k, b in (("", "generic"), ("_kernel", "kernel"))},
+    "standard_map_large": None,
+}
 
 
 def _summarize(out: dict) -> dict:
-    """The keys ``sympgpr_tpu.__main__._summarize`` prints for tokamak."""
+    """The keys ``sympgpr_tpu.__main__._summarize`` prints."""
     s = {k: out[k] for k in ("training_error", "t_train", "t_apply",
-                             "n_lost", "optimizer")}
-    for k in ("Eosc", "gd"):
-        s[f"mean_{k}"] = float(np.nanmean(out[k]))
+                             "one_step_mse", "period_ratio", "n_lost",
+                             "method", "optimizer") if k in out}
+    for k in ("Eosc", "gd", "Eosc_se"):
+        if k in out:
+            s[f"mean_{k}"] = float(np.nanmean(out[k]))
+    if "hyp" in out:
+        s["hyp"] = np.asarray(out["hyp"]).tolist()
     return s
 
 
@@ -53,11 +78,41 @@ def _device(name: str):
     return device
 
 
+def _run_other(args, device):
+    import importlib
+
+    if args.workload == "standard_map_large":
+        from sympgpr_tpu_torch.workloads import standard_map
+
+        out = standard_map.run_large(
+            n_train=args.n or 4096, nm=args.nm or 200,
+            steps=args.steps or 60,
+            **({"sig2n": args.sig2n} if args.sig2n else {}), device=device)
+        out.pop("models")
+        print(json.dumps(out))
+        return
+    name, backend, kw, fields, nm = OTHERS[args.workload]
+    wl = importlib.import_module(f"sympgpr_tpu_torch.workloads.{name}")
+    if name == "standard_map":
+        from sympgpr_tpu_torch.systems.standard_map import StandardMapConfig
+
+        cfg = StandardMapConfig(nm=args.nm or nm)
+    else:
+        from sympgpr_tpu_torch.systems.pendulum import PendulumConfig
+
+        cfg = PendulumConfig(**fields, nm=args.nm or nm)
+    out = wl.run(cfg, backend=backend, **kw, device=device)
+    print(json.dumps(_summarize(out), default=str))
+
+
 def cmd_run(args):
-    if args.workload not in WORKLOADS:
+    if args.workload not in WORKLOADS and args.workload not in OTHERS:
         sys.exit(f"unknown workload {args.workload!r}; "
-                 f"available: {sorted(WORKLOADS)}")
+                 f"available: {sorted({**WORKLOADS, **OTHERS})}")
     device = _device(args.device)
+    if args.workload in OTHERS:
+        _run_other(args, device)
+        return
     if args.workload == "tokamak_large":
         from sympgpr_tpu_torch.workloads import tokamak_large
 
@@ -84,7 +139,7 @@ def cmd_run(args):
 
 
 def cmd_list(args):
-    for name in sorted(WORKLOADS):
+    for name in sorted({**WORKLOADS, **OTHERS}):
         print(name)
 
 
@@ -99,12 +154,15 @@ def main(argv=None):
     p_run.add_argument("--optimizer", default=None, choices=("lbfgs", "cmaes"),
                        help="hyperparameter optimizer")
     p_run.add_argument("--n", type=int, default=None,
-                       help="training-set size (tokamak_large)")
+                       help="training-set size (tokamak_large, "
+                            "standard_map_large)")
     p_run.add_argument("--steps", type=int, default=None,
-                       help="optimizer steps (tokamak_large)")
+                       help="optimizer steps (tokamak_large, "
+                            "standard_map_large)")
     p_run.add_argument("--sig2n", type=float, default=None,
-                       help="fit jitter of tokamak_large (escalates x10 if "
-                            "the float32 Cholesky rejects it)")
+                       help="fit jitter of tokamak_large and "
+                            "standard_map_large (escalates x10 if the "
+                            "float32 Cholesky rejects it)")
     p_run.add_argument("--device", default="cuda",
                        help="torch device (default cuda)")
     p_run.add_argument("--with-reference", action="store_true",

@@ -2,15 +2,17 @@
 // iteration of the learned map for a batch of orbits in one launch.
 //
 // Replaces sympgpr_tpu/ops/pallas_step.py::_rollout_kernel (with its helpers
-// _sfactors and _tokamak_lost) in the configurations the tokamak workloads
-// run: implicit map, product kernels per_se / se_se / per_se_freq (kinds
-// 0, 1, 2), aux-GP warm start, `iters` fixed Newton iterations that keep P
-// where an update is non-finite, the tokamak loss check at the old q
-// (single map) or at the new q (Split), the mod_q wrap, NaN poisoning of
-// lost orbits, one map or Split cycling over M sub-maps (row i is made by
-// sub-map (i - 1) mod M).  Row 0 of the trajectory is the initial
-// condition.  The plain PyTorch version is
-// sympgpr_tpu_torch/ops/cuda_step.py::rollout_reference.
+// _sfactors and _tokamak_lost): product kernels per_se / se_se /
+// per_se_freq (kinds 0, 1, 2) with the implicit map (aux-GP warm start,
+// `iters` fixed Newton iterations that keep P where an update is
+// non-finite) or the explicit update P = p - pGP(q, p); the separable sum
+// kernel sum_per_se (kind 3) with Algorithm 2 (P from q alone, dq from P
+// alone); the tokamak loss check at the old q (single map) or at the new q
+// (Split); the mod_q wrap; the mod_p wrap with the unwrapped momentum
+// (pdiff) as a third output; NaN poisoning of lost orbits; one map or
+// Split cycling over M sub-maps (row i is made by sub-map (i - 1) mod M).
+// Row 0 of the trajectory is the initial condition.  The plain PyTorch
+// version is sympgpr_tpu_torch/ops/cuda_step.py::rollout_reference.
 //
 // What bounds it: the exps on the SFUs and the FP32 instructions around
 // them, not bytes.  Per orbit and step over N training and Na aux points
@@ -109,6 +111,20 @@
 //    reached by every thread.
 //  * Each step writes one value of Q and one of P per orbit (the team's
 //    lane 0).
+//  * The explicit update, Algorithm 2 and the mod_p wrap with pdiff are
+//    modes of their own instances (Mode, a template parameter), one map
+//    only, so none of their code reaches the implicit instances (a single
+//    extra select spills in float64's register-capped one-map instance,
+//    as the Split note above says).  The explicit update forms the step's factors as the implicit
+//    one does and sums (c0 + c1 dP) A B at P = p in the same pass: one team
+//    sum, no aux table, no Newton, no c0, c1 kept.  Algorithm 2 takes the
+//    periodic q-factors at frequency 1/2 (per_se's, the sum kernel's
+//    q-side addend): P = p - sum a0 (s'' - s'^2) A and dq = sum a1 h B,
+//    two exps a point and step and no A in the q update.  The explicit
+//    and Algorithm-2 instances read mod_p and whether to write pdiff at
+//    run time; the implicit one-map instance with the wrap is its own.
+//    With the loss check the unwrapped P is staged and pdiff of a lost
+//    orbit's row is rewritten as NaN with its Q and P, and stays NaN.
 //  * Templated on float and double.  Built without --use_fast_math: the
 //    float posterior sums already carry ~1e-4 cancellation noise, so the
 //    full-precision expf/sincosf (and exp/sincos) are used.  Only the order
@@ -129,6 +145,10 @@ constexpr int kMaxTeam = 1024;      // lanes per orbit
 constexpr int kPeriodic = 0;
 constexpr int kSeSe = 1;
 constexpr unsigned kFull = 0xffffffffu;
+// The update a step runs: the implicit map without or with the mod_p wrap
+// and pdiff, the explicit product update, Algorithm 2 (kind 3).  The last
+// three wrap P where mod_p > 0 and write pdiff where D is given.
+enum Mode { kImplicit, kImplicitWrap, kExplicit, kSum };
 
 // Per dtype: pairs are processed kPairs at a time without a guard between
 // them, so their exps overlap (a lane's row is padded to a multiple).
@@ -292,6 +312,7 @@ struct Args {
   int fields;          // values in a record, record_fields(n_maps)
   int compute;         // compute threads of a block (the solver warp follows)
   int half, ahalf;     // per_se (frequency 1/2) for the GP, the aux GP
+  T* D;  // (nm, B) unwrapped momentum (pdiff), or null; wrap modes only
 };
 
 // Shared memory of a block, in elements of T: the aux tables (4 columns of
@@ -352,10 +373,14 @@ __device__ __forceinline__ void team_sum(T (&v)[N], const Args<T>& a,
   }
 }
 
-template <typename T, int KIND, int AUX_KIND, bool SPLIT, typename S>
+template <typename T, int KIND, int AUX_KIND, bool SPLIT, int MODE,
+          typename S>
 __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
     rollout_kernel(Args<T> a) {
   constexpr int PM = S::kPM;
+  constexpr bool IMPLICIT = MODE == kImplicit || MODE == kImplicitWrap;
+  constexpr bool WRAP = MODE != kImplicit;  // mod_p and pdiff
+  static_assert(!(SPLIT && WRAP), "the wrap modes run one map");
   constexpr int kPairs = Lane<T>::kPairs;
   extern __shared__ unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
@@ -387,7 +412,7 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
     c = map_consts<KIND>(a.scal, a.half, a.ahalf);
   }
 
-  for (int n = threadIdx.x; n < maps * nas; n += blockDim.x) {
+  for (int n = threadIdx.x; IMPLICIT && n < maps * nas; n += blockDim.x) {
     const T u = a.auxq[n];
     T su = u, cu = T(1);
     if (AUX_KIND != kSeSe) {
@@ -461,6 +486,10 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
     a.Q[b] = q;
     a.P[b] = p;
   }
+  // the wrap modes: mod_p (0: no wrap) and the unwrapped momentum
+  const T mod_p = WRAP ? a.scal[8] : T(0);
+  T pd = p;
+  if (WRAP && a.D && active && lane == 0) a.D[b] = p;
   int parity = 0;
   int m = 0;  // the sub-map of this step, (i - 1) mod n_maps
 
@@ -477,7 +506,7 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
 
     T sq = T(0), cq = T(1), asq = T(0), acq = T(1);
     if (KIND != kSeSe) dsincos(c.freq * q, &sq, &cq);
-    if (AUX_KIND != kSeSe) {
+    if (IMPLICIT && AUX_KIND != kSeSe) {
       if (AUX_KIND == KIND && c.afreq == c.freq) {
         asq = sq;
         acq = cq;
@@ -486,24 +515,30 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
       }
     }
 
-    // aux-GP warm start; its q- and p-factors share one exp
-    T mean[1] = {T(0)};
-    for (int j = 0, n = lane; j < naux; ++j, n += team) {
-      const T d = xs[n] - q;  // se_se only
-      const T sh = xs[n] * acq - xc[n] * asq;
-      const T sa = qfactors<AUX_KIND>(d, sh, T(0), c.ai2, T(0), T(0)).s;
-      const T dpa = xp[n] - p;
-      mean[0] += xa[n] * dexp(-(sa + dpa * dpa * c.haly2));
+    T P;
+    if constexpr (IMPLICIT) {
+      // aux-GP warm start; its q- and p-factors share one exp
+      T mean[1] = {T(0)};
+      for (int j = 0, n = lane; j < naux; ++j, n += team) {
+        const T d = xs[n] - q;  // se_se only
+        const T sh = xs[n] * acq - xc[n] * asq;
+        const T sa = qfactors<AUX_KIND>(d, sh, T(0), c.ai2, T(0), T(0)).s;
+        const T dpa = xp[n] - p;
+        mean[0] += xa[n] * dexp(-(sa + dpa * dpa * c.haly2));
+      }
+      team_sum(mean, a, s_red, parity);
+      P = mean[0] + c.delta * p;
     }
-    team_sum(mean, a, s_red, parity);
-    T P = mean[0] + c.delta * p;
 
     // Newton-invariant factors of the lane's pairs, once per step: c0, c1
     // in registers for the Newton loop, s and c2 in the thread's row.  A =
     // exp(-s) is not taken apart: each exp below is A * B = exp(-(s +
     // dP^2 / 2 ly^2)), one per pair and iteration, as in the plain kernel's
     // fused form, and c0..c3 are the twin's without their factor A.
+    // The explicit update and Algorithm 2 sum pGP at P = p in the same
+    // pass: (c0 + c1 dP) A B with dP = uP - p, or a0 (s'' - s'^2) A.
     T c0[PM], c1[PM];
+    T pgp[1] = {T(0)};
 #pragma unroll
     for (int k0 = 0; k0 < PM; k0 += kPairs) {
       if (k0 < np) {
@@ -516,17 +551,32 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
           const T ch = ck * cq + sk * sq;
           const T w0 = k * team < last ? __ldg(l_a0 + k * team) : T(0);
           const QF<T> g = qfactors<KIND>(d, sh, ch, c.i2, c.k1, c.k2);
-          const T g1 = -g.sp * c.ily2;
-          c0[k] = w0 * (g.spp - g.sp * g.sp);
-          c1[k] = r[mo + kC3] * g1;
-          r[C2] = w0 * g1;
-          r[SA] = g.s;
+          if constexpr (MODE == kSum) {
+            pgp[0] += w0 * (g.spp - g.sp * g.sp) * dexp(-g.s);
+          } else {
+            const T g1 = -g.sp * c.ily2;
+            const T k0v = w0 * (g.spp - g.sp * g.sp);
+            const T k1v = r[mo + kC3] * g1;
+            r[C2] = w0 * g1;
+            r[SA] = g.s;
+            if constexpr (MODE == kExplicit) {
+              const T dP = r[mo + kUP] - p;
+              pgp[0] += (k0v + k1v * dP) * dexp(-(g.s + dP * dP * c.hily2));
+            } else {
+              c0[k] = k0v;
+              c1[k] = k1v;
+            }
+          }
         }
       }
     }
+    if constexpr (!IMPLICIT) {
+      team_sum(pgp, a, s_red, parity);
+      P = p - pgp[0];
+    }
 
     // fixed-iteration Newton on f(P) = pGP(P) - p + P
-    for (int it = 0; it < a.iters; ++it) {
+    for (int it = 0; IMPLICIT && it < a.iters; ++it) {
       T v[2] = {T(0), T(0)};  // f, f'
 #pragma unroll
       for (int k0 = 0; k0 < PM; k0 += kPairs) {
@@ -548,7 +598,12 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
       if (isfinite(Pn)) P = Pn;
     }
 
-    // q update at the solved momentum
+    // the unwrapped P: the loss check's and pdiff's; the q update runs at
+    // the wrapped one
+    const T Pu = P;
+    if (WRAP && mod_p > T(0)) P = P - dfloor(P / mod_p) * mod_p;
+
+    // q update at the solved momentum (Algorithm 2: B alone, no c2 term)
     T dq[1] = {T(0)};
 #pragma unroll
     for (int k0 = 0; k0 < PM; k0 += kPairs) {
@@ -558,9 +613,13 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
           const T* r = rec + F * k;
           const T dP = r[mo + kUP] - P;
           const T dP2 = dP * dP;
-          const T E = dexp(-(r[SA] + dP2 * c.hily2));
           const T h = c.ily2 - dP2 * c.ily2 * c.ily2;
-          dq[0] += (r[C2] * dP + r[mo + kC3] * h) * E;
+          if constexpr (MODE == kSum) {
+            dq[0] += r[mo + kC3] * h * dexp(-(dP2 * c.hily2));
+          } else {
+            const T E = dexp(-(r[SA] + dP2 * c.hily2));
+            dq[0] += (r[C2] * dP + r[mo + kC3] * h) * E;
+          }
         }
       }
     }
@@ -568,6 +627,7 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
     T Q = q + dq[0];
     if (c.mod_q > T(0)) Q = Q - dfloor(Q / c.mod_q) * c.mod_q;
     if (!isfinite(P)) Q = nan;
+    if constexpr (WRAP) pd = pd + (Pu - p);
 
     const size_t row = size_t(i) * B + b;
     if (a.loss_check) {
@@ -580,7 +640,7 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
           s_lq[(i & 1) * teams + t] = a.loss_at_new_q ? Q : q;
         else
           s_lq[(i & 1) * teams + t] = q;
-        s_lP[(i & 1) * teams + t] = P;
+        s_lP[(i & 1) * teams + t] = Pu;
       }
       __syncthreads();
       if (own_solver && threadIdx.x < teams) {  // the flag of this step
@@ -590,11 +650,16 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
       if (i > 1 && s_lost[((i - 1) & 1) * teams + t] != T(0)) {
         Q = P = nan;
         if (active && lane == 0) a.Q[row - B] = a.P[row - B] = nan;
+        if constexpr (WRAP) {
+          pd = nan;
+          if (a.D && active && lane == 0) a.D[row - B] = nan;
+        }
       }
     }
     if (active && lane == 0) {
       a.Q[row] = Q;
       a.P[row] = P;
+      if (WRAP && a.D) a.D[row] = pd;
     }
     q = Q;
     p = P;
@@ -607,20 +672,23 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
         active && lane == 0) {
       const size_t row = size_t(a.nm - 1) * B + b;
       a.Q[row] = a.P[row] = nan;
+      if (WRAP && a.D) a.D[row] = nan;
     }
   }
 }
 
-template <typename T, int KIND, int AUX_KIND, typename S>
+template <typename T, int KIND, int AUX_KIND, int MODE, typename S>
 cudaError_t launch_shape(const Args<T>& a, int teams, int threads,
                          size_t smem, cudaStream_t stream) {
   const bool split = split_instance(a.n_maps, a.loss_at_new_q);
   if (threads > S::kThreads || a.np > S::kPM ||
       smem < smem_elems(a.nas, a.compute, teams, a.npad, a.n_maps, split) *
-                 sizeof(T))
+                 sizeof(T) ||
+      (split && MODE != kImplicit))  // the other modes run one map
     return cudaErrorInvalidValue;
-  auto kern = split ? rollout_kernel<T, KIND, AUX_KIND, true, S>
-                    : rollout_kernel<T, KIND, AUX_KIND, false, S>;
+  void (*kern)(Args<T>) = rollout_kernel<T, KIND, AUX_KIND, false, MODE, S>;
+  if constexpr (MODE == kImplicit)
+    if (split) kern = rollout_kernel<T, KIND, AUX_KIND, true, MODE, S>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e == cudaSuccess)  // all of the SM's 256 KB for shared memory
@@ -637,41 +705,55 @@ cudaError_t launch_shape(const Args<T>& a, int teams, int threads,
 // instance spills a few bytes at 96 registers, and is still the fastest:
 // float64's exp and sin/cos are long dependent chains that need the 18
 // warps an SM to hide them.
-template <typename T, int KIND, int AUX_KIND, typename S, typename... More>
+template <typename T, int KIND, int AUX_KIND, int MODE, typename S,
+          typename... More>
 cudaError_t launch_instance(const Args<T>& a, const int (&inst)[3],
                             int teams, int threads, size_t smem,
                             cudaStream_t s) {
   if (inst[0] == S::kPM && inst[1] == S::kThreads && inst[2] == S::kBlocks)
-    return launch_shape<T, KIND, AUX_KIND, S>(a, teams, threads, smem, s);
+    return launch_shape<T, KIND, AUX_KIND, MODE, S>(a, teams, threads, smem,
+                                                    s);
   if constexpr (sizeof...(More) > 0)
-    return launch_instance<T, KIND, AUX_KIND, More...>(a, inst, teams,
-                                                       threads, smem, s);
+    return launch_instance<T, KIND, AUX_KIND, MODE, More...>(
+        a, inst, teams, threads, smem, s);
   return cudaErrorInvalidValue;
 }
 
-template <typename T, int KIND, int AUX_KIND>
+template <typename T, int KIND, int AUX_KIND, int MODE>
 cudaError_t launch(const Args<T>& a, const int (&inst)[3], int teams,
                    int threads, size_t smem, cudaStream_t s) {
   if constexpr (sizeof(T) == 4)
-    return launch_instance<T, KIND, AUX_KIND, Shape<10, 288, 3>,
+    return launch_instance<T, KIND, AUX_KIND, MODE, Shape<10, 288, 3>,
                            Shape<16, 288, 2>, Shape<10, 512, 1>,
                            Shape<16, 512, 1>>(a, inst, teams, threads, smem,
                                               s);
   else
-    return launch_instance<T, KIND, AUX_KIND, Shape<8, 288, 2>,
+    return launch_instance<T, KIND, AUX_KIND, MODE, Shape<8, 288, 2>,
                            Shape<16, 288, 1>>(a, inst, teams, threads, smem,
                                               s);
 }
 
-// per_se (0) and per_se_freq (2) run the periodic instance, se_se (1) its own
+// per_se (0) and per_se_freq (2) run the periodic instance, se_se (1) its
+// own; the explicit instances take no aux model
 template <typename T, int KIND>
-cudaError_t dispatch_aux(int aux_kind, const Args<T>& a, const int (&inst)[3],
-                         int teams, int threads, size_t smem,
-                         cudaStream_t s) {
+cudaError_t dispatch_aux(int mode, int aux_kind, const Args<T>& a,
+                         const int (&inst)[3], int teams, int threads,
+                         size_t smem, cudaStream_t s) {
+  if (mode == kExplicit)
+    return launch<T, KIND, kPeriodic, kExplicit>(a, inst, teams, threads,
+                                                 smem, s);
+  const bool wrap = mode == kImplicitWrap;
   switch (aux_kind) {
     case 0: case 2:
-      return launch<T, KIND, kPeriodic>(a, inst, teams, threads, smem, s);
-    case 1: return launch<T, KIND, kSeSe>(a, inst, teams, threads, smem, s);
+      return wrap ? launch<T, KIND, kPeriodic, kImplicitWrap>(
+                        a, inst, teams, threads, smem, s)
+                  : launch<T, KIND, kPeriodic, kImplicit>(
+                        a, inst, teams, threads, smem, s);
+    case 1:
+      return wrap ? launch<T, KIND, kSeSe, kImplicitWrap>(
+                        a, inst, teams, threads, smem, s)
+                  : launch<T, KIND, kSeSe, kImplicit>(a, inst, teams,
+                                                      threads, smem, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -679,8 +761,9 @@ cudaError_t dispatch_aux(int aux_kind, const Args<T>& a, const int (&inst)[3],
 template <typename T>
 int run(const T* scal, const T* uq, const T* uP, const T* a0, const T* a1,
         const T* auxq, const T* auxp, const T* auxa, const T* q0,
-        const T* p0, T* Q, T* P, int B, int ns, int nas, int n_maps, int nm,
-        int iters, int kind, int aux_kind, int loss_check, int loss_at_new_q,
+        const T* p0, T* Q, T* P, T* D, int B, int ns, int nas, int n_maps,
+        int nm, int iters, int kind, int aux_kind, int loss_check,
+        int loss_at_new_q, int explicit_update, int mod_p, int track_pdiff,
         int team, int teams, int threads, int smem_bytes, int inst_points,
         int inst_threads, int inst_blocks, void* stream) {
   // the layout comes from ops/cuda_step.py::launch_geometry; refuse any the
@@ -693,22 +776,31 @@ int run(const T* scal, const T* uq, const T* uP, const T* a0, const T* a1,
   constexpr int kPairs = Lane<T>::kPairs;
   if (team < 1 || team > kMaxTeam || (1 << log_team) != team ||
       teams < 1 || compute % 32 != 0 || np > kPMax || B < 1 || n_maps < 1 ||
-      (threads != compute && threads != compute + kSolverThreads))
+      (threads != compute && threads != compute + kSolverThreads) ||
+      (track_pdiff && D == nullptr))
     return int(cudaErrorInvalidValue);
+  // kind 3 (sum_per_se) runs Algorithm 2 on per_se's q-factors, at
+  // frequency 1/2 (its packed frequency is 0)
   const Args<T> a{scal, uq, uP, a0, a1, auxq, auxp, auxa, q0, p0, Q, P,
                   B, ns, nas, n_maps, nm, iters, loss_check, loss_at_new_q,
                   team, log_team, np, (np + kPairs - 1) / kPairs * kPairs,
-                  record_fields(n_maps), compute, kind == 0, aux_kind == 0};
+                  record_fields(n_maps), compute, kind == 0 || kind == 3,
+                  aux_kind == 0, track_pdiff ? D : nullptr};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = size_t(smem_bytes);
   const int inst[3] = {inst_points, inst_threads, inst_blocks};
+  const int mode = explicit_update ? kExplicit
+                   : (mod_p || track_pdiff) ? kImplicitWrap : kImplicit;
   switch (kind) {
     case 0: case 2:
-      return int(dispatch_aux<T, kPeriodic>(aux_kind, a, inst, teams,
+      return int(dispatch_aux<T, kPeriodic>(mode, aux_kind, a, inst, teams,
                                             threads, smem, s));
     case 1:
-      return int(dispatch_aux<T, kSeSe>(aux_kind, a, inst, teams, threads,
-                                        smem, s));
+      return int(dispatch_aux<T, kSeSe>(mode, aux_kind, a, inst, teams,
+                                        threads, smem, s));
+    case 3:
+      return int(launch<T, kPeriodic, kPeriodic, kSum>(a, inst, teams,
+                                                       threads, smem, s));
     default: return int(cudaErrorInvalidValue);
   }
 }
@@ -718,7 +810,11 @@ int run(const T* scal, const T* uq, const T* uP, const T* a0, const T* a1,
 // Plain C interface for ctypes.  Every pointer is a device pointer; the
 // model columns hold `n_maps` sub-maps of `ns` training and `nas` aux
 // points each, scal one row of kNScal per sub-map.  The loss check (when
-// on) takes the old q, or the new q with `loss_at_new_q`.  The
+// on) takes the old q, or the new q with `loss_at_new_q`.  `explicit_update`
+// takes the explicit product update (kind 3 always runs Algorithm 2);
+// `mod_p` says the models were packed with a mod_p (scal's column 8) to
+// wrap P by; `track_pdiff` writes the unwrapped momentum into D (null
+// otherwise).  The last three run one map with the check at the old q.  The
 // layout comes from ops/cuda_step.py::launch_geometry: `team` lanes per
 // orbit, `teams` orbits per block, a block of `threads` threads (team *
 // teams compute threads and, where the block has room, one solver warp),
@@ -728,27 +824,30 @@ int run(const T* scal, const T* uq, const T* uP, const T* a0, const T* a1,
 extern "C" int rollout_step_f32(
     const float* scal, const float* uq, const float* uP, const float* a0,
     const float* a1, const float* auxq, const float* auxp, const float* auxa,
-    const float* q0, const float* p0, float* Q, float* P, int B, int ns,
-    int nas, int n_maps, int nm, int iters, int kind, int aux_kind,
-    int loss_check, int loss_at_new_q, int team, int teams, int threads,
-    int smem_bytes, int inst_points, int inst_threads, int inst_blocks,
-    void* stream) {
-  return run<float>(scal, uq, uP, a0, a1, auxq, auxp, auxa, q0, p0, Q, P, B,
-                    ns, nas, n_maps, nm, iters, kind, aux_kind, loss_check,
-                    loss_at_new_q, team, teams, threads, smem_bytes,
-                    inst_points, inst_threads, inst_blocks, stream);
+    const float* q0, const float* p0, float* Q, float* P, float* D, int B,
+    int ns, int nas, int n_maps, int nm, int iters, int kind, int aux_kind,
+    int loss_check, int loss_at_new_q, int explicit_update, int mod_p,
+    int track_pdiff, int team, int teams, int threads, int smem_bytes,
+    int inst_points, int inst_threads, int inst_blocks, void* stream) {
+  return run<float>(scal, uq, uP, a0, a1, auxq, auxp, auxa, q0, p0, Q, P, D,
+                    B, ns, nas, n_maps, nm, iters, kind, aux_kind, loss_check,
+                    loss_at_new_q, explicit_update, mod_p, track_pdiff, team,
+                    teams, threads, smem_bytes, inst_points, inst_threads,
+                    inst_blocks, stream);
 }
 
 extern "C" int rollout_step_f64(
     const double* scal, const double* uq, const double* uP, const double* a0,
     const double* a1, const double* auxq, const double* auxp,
     const double* auxa, const double* q0, const double* p0, double* Q,
-    double* P, int B, int ns, int nas, int n_maps, int nm, int iters,
-    int kind, int aux_kind, int loss_check, int loss_at_new_q, int team,
-    int teams, int threads, int smem_bytes, int inst_points,
-    int inst_threads, int inst_blocks, void* stream) {
-  return run<double>(scal, uq, uP, a0, a1, auxq, auxp, auxa, q0, p0, Q, P, B,
-                     ns, nas, n_maps, nm, iters, kind, aux_kind, loss_check,
-                     loss_at_new_q, team, teams, threads, smem_bytes,
+    double* P, double* D, int B, int ns, int nas, int n_maps, int nm,
+    int iters, int kind, int aux_kind, int loss_check, int loss_at_new_q,
+    int explicit_update, int mod_p, int track_pdiff, int team, int teams,
+    int threads, int smem_bytes, int inst_points, int inst_threads,
+    int inst_blocks, void* stream) {
+  return run<double>(scal, uq, uP, a0, a1, auxq, auxp, auxa, q0, p0, Q, P,
+                     D, B, ns, nas, n_maps, nm, iters, kind, aux_kind,
+                     loss_check, loss_at_new_q, explicit_update, mod_p,
+                     track_pdiff, team, teams, threads, smem_bytes,
                      inst_points, inst_threads, inst_blocks, stream);
 }

@@ -1,8 +1,11 @@
 """Quality metrics (PyTorch port of ``sympgpr_tpu/eval/metrics.py``):
-energy oscillation ``Eosc = std(H)/mean(H)`` per orbit and geometric
-distance of the first mapped point to the reference orbit."""
+energy oscillation ``Eosc = std(H)/mean(H)`` per orbit, geometric
+distance of the first mapped point to the reference orbit, and the
+pendulum's energy."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -36,3 +39,8 @@ def geometric_distance(q1: Tensor, p1: Tensor, q_ref: Tensor, p_ref: Tensor,
 
 def training_mse(z: Tensor, z_pred: Tensor) -> Tensor:
     return torch.mean((z - z_pred) ** 2)
+
+
+def pendulum_energy(q: Tensor, p: Tensor, U0: float = 1.0) -> Tensor:
+    """H = p^2/2 + U0 (1 - cos(q + pi))."""
+    return p**2 / 2.0 + U0 * (1.0 - torch.cos(q + math.pi))

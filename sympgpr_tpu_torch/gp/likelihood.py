@@ -22,7 +22,7 @@ import math
 import numpy as np
 import torch
 
-from sympgpr_tpu_torch.gp.covariance import build_K_fast, build_Kreg
+from sympgpr_tpu_torch.gp.covariance import build_K, build_K_fast, build_Kreg
 from sympgpr_tpu_torch.kernels.variants import Kernel
 from sympgpr_tpu_torch.linalg.triangular import spd_inverse_from_chol
 from sympgpr_tpu_torch.ops import cuda_cov
@@ -68,6 +68,19 @@ def nll_reg(kernel: Kernel, params: Tensor, sig: Tensor, sig2n: Tensor,
     K = build_Kreg(kernel, X, X, params, sig)
     Ky = K + torch.abs(sig2n) * _eye(K.shape[0], K)
     return _nll_from_Ky(Ky, z)
+
+
+def nll_separable(kernel: Kernel, params: Tensor, sig: Tensor,
+                  sig2n: Tensor, X: Tensor, z_block: Tensor,
+                  block: int) -> Tensor:
+    """Per-block NLL of the separable (sum) kernel, for explicit training:
+    block 0 is the (dq dq') block against z_p, block 1 the (dP dP') block
+    against z_q."""
+    K = build_K(kernel, X, X, params, sig)
+    n = X.shape[0]
+    sl = slice(0, n) if block == 0 else slice(n, 2 * n)
+    Ky = K[sl, sl] + torch.abs(sig2n) * _eye(n, K)
+    return _nll_from_Ky(Ky, z_block)
 
 
 def nll_value_and_grad(kernel: Kernel, params: Tensor, sig: Tensor,

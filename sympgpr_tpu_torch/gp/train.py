@@ -303,6 +303,51 @@ def fit_auxgp(
     return AuxGP.create(kernel, params, sig, sig2n, X, z, delta=delta), res
 
 
+def fit_sympgp_separable(
+    kernel: Kernel,
+    X: Tensor,
+    z: Tensor,
+    *,
+    sig2n: float,
+    nll_sig2n: float | None = None,
+    x0_q: Sequence[float] = (1.0,),
+    x0_p: Sequence[float] = (1.0,),
+    fixed_sig: float,
+    transform: str = "log10",
+    bounds=None,
+) -> tuple[SympGP, tuple[FitResult, FitResult]]:
+    """Explicit-map training of a sum kernel: lq and lp fitted apart by
+    L-BFGS on the two diagonal blocks (``likelihood.nll_separable``), at
+    ``nll_sig2n`` when given; the final model solves at ``sig2n``."""
+    n = X.shape[0]
+    zp, zq = z[:n], z[n:]
+    s2 = sig2n if nll_sig2n is None else nll_sig2n
+
+    def make(block: int, zb: Tensor):
+        def objective(theta: Tensor) -> Tensor:
+            lq = _apply_transform(theta, transform)[0]
+            # a diagonal block depends on its own lengthscale only; the
+            # other is 1 (any finite value keeps its derivatives finite)
+            one = torch.ones((), dtype=lq.dtype, device=lq.device)
+            params = torch.stack([lq, one] if block == 0 else [one, lq])
+            return likelihood.nll_separable(
+                kernel, params,
+                torch.tensor(fixed_sig, dtype=lq.dtype, device=lq.device),
+                torch.tensor(s2, dtype=lq.dtype, device=lq.device), X, zb,
+                block)
+        return objective
+
+    res_q = minimize_lbfgs(make(0, zp), x0_q, device=X.device,
+                           dtype=X.dtype, bounds=bounds)
+    res_p = minimize_lbfgs(make(1, zq), x0_p, device=X.device,
+                           dtype=X.dtype, bounds=bounds)
+    lq, lp = (float(torch.abs(_apply_transform(
+        torch.as_tensor(r.theta, dtype=torch.float64), transform))
+        .reshape(())) for r in (res_q, res_p))
+    model = SympGP.create(kernel, [lq, lp], fixed_sig, sig2n, X, z)
+    return model, (res_q, res_p)
+
+
 def _adam(kernel: Kernel, X: Tensor, z: Tensor, theta: Tensor,
           sig2n: Tensor, steps: int, lr: float):
     """``steps`` Adam iterations over ``nll_value_and_grad_theta``, with

@@ -235,21 +235,8 @@ def apply_map_fast(
 ) -> Trajectory:
     """``apply_map`` for product and sum kernels, in the dtype and on the
     device of the inputs."""
-    _check_fast(sgp, cfg)
-    q = torch.atleast_1d(q0)
-    p = torch.atleast_1d(p0)
-    pdiff = p
-    qs, ps, pds = [q], [p], [p]
-    for i in range(nm - 1):
-        q, p, dPc = map_step(sgp, aux, q, p, i, cfg, loss_pre, loss_post,
-                             fixed_iters)
-        pdiff = pdiff + dPc
-        qs.append(q)
-        ps.append(p)
-        pds.append(pdiff)
-    if cfg.track_pdiff:
-        return Trajectory(torch.stack(qs), torch.stack(ps), torch.stack(pds))
-    return Trajectory(torch.stack(qs), torch.stack(ps), None)
+    return apply_map_split_fast([sgp], [aux], q0, p0, nm, cfg, loss_pre,
+                                loss_post, fixed_iters)
 
 
 def apply_map_split_fast(
@@ -265,16 +252,22 @@ def apply_map_split_fast(
 ) -> Trajectory:
     """``apply_map_split`` on the fast path: step i (the one that makes row
     i + 1) applies sub-map ``i % len(sgps)``; the Split tokamak checks the
-    loss boundary after the step (``loss_post``)."""
+    loss boundary after the step (``loss_post``).  With one sub-map it is
+    ``apply_map_fast``."""
     for sgp in sgps:
         _check_fast(sgp, cfg)
     q = torch.atleast_1d(q0)
     p = torch.atleast_1d(p0)
-    qs, ps = [q], [p]
+    pdiff = p
+    qs, ps, pds = [q], [p], [p]
     for i in range(nm - 1):
         m = i % len(sgps)
-        q, p, _ = map_step(sgps[m], auxes[m], q, p, i, cfg, loss_pre,
-                           loss_post, fixed_iters)
+        q, p, dPc = map_step(sgps[m], auxes[m], q, p, i, cfg, loss_pre,
+                             loss_post, fixed_iters)
         qs.append(q)
         ps.append(p)
-    return Trajectory(torch.stack(qs), torch.stack(ps), None)
+        if cfg.track_pdiff:
+            pdiff = pdiff + dPc
+            pds.append(pdiff)
+    return Trajectory(torch.stack(qs), torch.stack(ps),
+                      torch.stack(pds) if cfg.track_pdiff else None)

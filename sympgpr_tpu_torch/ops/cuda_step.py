@@ -2,14 +2,18 @@
 launch (PyTorch port of ``sympgpr_tpu/ops/pallas_step.py``).
 
 The kernel (``csrc/rollout_step.cu``) replaces the Pallas kernel
-``_rollout_kernel`` for the modes the tokamak workloads run: implicit
-product kernels (per_se, se_se, per_se_freq) with the aux-GP warm start and
-fixed-iteration Newton, the tokamak loss check at the old q (single map)
-or at the new q (Split), the mod_q wrap, one map or Split cycling over
-``n_maps`` sub-maps (step i uses sub-map ``(i - 1) % n_maps`` for row i),
-float32 or float64.  The modes not covered yet (explicit and Algorithm-2
-updates, mod_p with pdiff) raise ``NotImplementedError``; nothing falls
-back.
+``_rollout_kernel``: implicit product kernels (per_se, se_se, per_se_freq)
+with the aux-GP warm start and fixed-iteration Newton, the explicit
+product update, Algorithm 2 for the separable sum kernel sum_per_se, the
+tokamak loss check at the old q (single map) or at the new q (Split), the
+mod_q wrap, the mod_p wrap with unwrapped-momentum (pdiff) tracking, one
+map or Split cycling over ``n_maps`` sub-maps (step i uses sub-map ``(i -
+1) % n_maps`` for row i), float32 or float64.  The explicit update,
+Algorithm 2 and mod_p / pdiff run with one map and the loss check at the
+old q; with Split cycling or the check at the new q they raise
+``NotImplementedError``, as do the Pallas kernel's TPU-only modes
+(compensated sums, MXU reductions), which have no argument here.  Nothing
+falls back.
 
 ``rollout_in_kernel`` dispatches on the device of its inputs: CPU tensors
 go to the plain PyTorch version ``rollout_reference`` (the fast path of
@@ -322,18 +326,24 @@ def pack_models_split(sgps: list[SympGP], auxes: list[AuxGP | None],
     )
 
 
-def _check_supported(pm: PackedModels, explicit: bool,
-                     track_pdiff: bool) -> None:
-    missing = []
-    if pm.kind not in (0, 1, 2):
-        missing.append(f"kernel {_KIND_NAME[pm.kind]!r} (Algorithm 2)")
-    if pm.mod_p is not None or track_pdiff:
-        missing.append("mod_p wrap and pdiff tracking")
+def _check_supported(pm: PackedModels, explicit: bool, track_pdiff: bool,
+                     loss_at_new_q: bool) -> None:
+    """Raise on the modes the kernel does not take: the explicit update,
+    Algorithm 2 (kind 3) and mod_p / pdiff run in the one-map instances
+    only, not with Split cycling or the loss check at the new q."""
+    if not split_instance(pm.n_maps, loss_at_new_q):
+        return
+    modes = []
+    if pm.kind == 3:
+        modes.append(f"kernel {_KIND_NAME[pm.kind]!r} (Algorithm 2)")
     if explicit:
-        missing.append("the explicit update")
-    if missing:
+        modes.append("the explicit update")
+    if pm.mod_p is not None or track_pdiff:
+        modes.append("mod_p wrap and pdiff tracking")
+    if modes:
         raise NotImplementedError(
-            "rollout kernel does not cover yet: " + ", ".join(missing))
+            "rollout kernel does not cover yet: " + ", ".join(modes)
+            + " with Split cycling or the loss check at the new q")
 
 
 def _tokamak_lost(P: Tensor, q: Tensor) -> Tensor:
@@ -368,19 +378,26 @@ def _models_of(pm: PackedModels, m: int = 0) -> tuple[SympGP, AuxGP]:
 
 def rollout_reference(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int,
                       iters: int = 5, loss_check: bool = False,
-                      loss_at_new_q: bool = False):
+                      loss_at_new_q: bool = False, explicit: bool = False,
+                      track_pdiff: bool = False):
     """Plain PyTorch version of the kernel, in the dtype of the inputs.
 
-    The fast path of ``maps.fast_apply`` with ``iters`` fixed Newton
-    iterations over the packed columns (``apply_map_split_fast``: step i,
-    making row i + 1, with sub-map ``i % n_maps``; with one map, the steps
-    of ``apply_map_fast``), the tokamak loss check at the old q or, with
-    ``loss_at_new_q``, at the new q, and the mod_q wrap.  Returns (Q, P),
-    each (nm, B).
+    The fast path of ``maps.fast_apply`` over the packed columns
+    (``apply_map_split_fast``: step i, making row i + 1, with sub-map ``i %
+    n_maps``; with one map, ``apply_map_fast``); the implicit update
+    with ``iters`` fixed Newton iterations and the aux warm start, or the
+    explicit update (``explicit``; always for kind 3, Algorithm 2) without
+    aux model; the tokamak loss check at the old q or, with
+    ``loss_at_new_q``, at the new q; the mod_q wrap and, where the models
+    were packed with ``mod_p``, the mod_p wrap.  Returns (Q, P), or (Q, P,
+    D) with ``track_pdiff`` (D the unwrapped momentum, row 0 = p0), each
+    (nm, B).
     """
-    _check_supported(pm, False, False)
-    cfg = MapConfig(mod_q=pm.scal[0, 5] if pm.mod_q is not None else None,
-                    newton_maxiter=iters)
+    _check_supported(pm, explicit, track_pdiff, loss_at_new_q)
+    cfg = MapConfig(explicit=explicit or pm.kind == 3,
+                    mod_q=pm.scal[0, 5] if pm.mod_q is not None else None,
+                    mod_p=pm.scal[0, 8] if pm.mod_p is not None else None,
+                    track_pdiff=track_pdiff, newton_maxiter=iters)
     if not loss_check:
         loss_pre = loss_post = None
     elif loss_at_new_q:
@@ -391,7 +408,7 @@ def rollout_reference(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int,
     traj = fast_apply.apply_map_split_fast(
         list(sgps), list(auxes), q0, p0, nm, cfg, loss_pre=loss_pre,
         loss_post=loss_post, fixed_iters=True)
-    return traj.q, traj.p
+    return (traj.q, traj.p, traj.pdiff) if track_pdiff else (traj.q, traj.p)
 
 
 def _validate(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int,
@@ -431,15 +448,18 @@ def _validate(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int,
     return geo
 
 
-_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 20 + [ctypes.c_void_p]
 
 
 def _launch(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int, iters: int,
             loss_check: bool, team: int | None = None,
-            loss_at_new_q: bool = False):
+            loss_at_new_q: bool = False, explicit: bool = False,
+            track_pdiff: bool = False):
     """Launch the kernel on CUDA tensors; ``team`` forces the lanes per
-    orbit (``launch_geometry`` chooses by default)."""
+    orbit (``launch_geometry`` chooses by default).  Returns (Q, P), or
+    (Q, P, D) with ``track_pdiff``."""
     global LAUNCHES
+    _check_supported(pm, explicit, track_pdiff, loss_at_new_q)
     geo = _validate(pm, q0, p0, nm, iters, team, loss_at_new_q)
     dev, dtype = q0.device, q0.dtype
     B = q0.shape[0]
@@ -447,41 +467,47 @@ def _launch(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int, iters: int,
     fn = _build.function("rollout_step", sym, _ARGS)
     Q = torch.empty((nm, B), dtype=dtype, device=dev)
     P = torch.empty((nm, B), dtype=dtype, device=dev)
+    D = torch.empty((nm, B), dtype=dtype, device=dev) if track_pdiff else None
     ptr = _build.ptr
     with torch.cuda.device(dev):
         rc = fn(*(ptr(t) for t in pm.tensors()), ptr(q0), ptr(p0), ptr(Q),
-                ptr(P), B, pm.ns, pm.nas, pm.n_maps, nm, iters, pm.kind,
-                pm.aux_kind, int(loss_check), int(loss_at_new_q), geo.team,
-                geo.teams_per_block, geo.threads,
+                ptr(P), ptr(D) if track_pdiff else None, B, pm.ns, pm.nas,
+                pm.n_maps, nm, iters, pm.kind, pm.aux_kind, int(loss_check),
+                int(loss_at_new_q), int(explicit), int(pm.mod_p is not None),
+                int(track_pdiff), geo.team, geo.teams_per_block, geo.threads,
                 geo.smem_bytes, *geo.instance, _build.stream(dev))
     _build.check(rc, "rollout kernel")
     LAUNCHES += 1
-    return Q, P
+    return (Q, P, D) if track_pdiff else (Q, P)
 
 
 def rollout_in_kernel(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int,
                       iters: int = 5, loss_check: bool = False,
                       loss_at_new_q: bool = False, explicit: bool = False,
                       track_pdiff: bool = False):
-    """Full nm-step rollout; returns (Q, P), each (nm, B), row 0 = ICs.
+    """Full nm-step rollout; returns (Q, P), or (Q, P, D) with
+    ``track_pdiff``, each (nm, B), row 0 = ICs.  ``explicit`` takes the
+    explicit update (kind 3, Algorithm 2, always does).
 
     CPU tensors run ``rollout_reference``; CUDA tensors launch the kernel
     (and raise if it cannot).
     """
-    _check_supported(pm, explicit, track_pdiff)
     if q0.device.type == "cpu":
         return rollout_reference(pm, q0, p0, nm, iters, loss_check,
-                                 loss_at_new_q)
+                                 loss_at_new_q, explicit, track_pdiff)
     if q0.device.type != "cuda":
         raise ValueError(f"no rollout for device {q0.device}")
     return _launch(pm, q0, p0, nm, iters, loss_check,
-                   loss_at_new_q=loss_at_new_q)
+                   loss_at_new_q=loss_at_new_q, explicit=explicit,
+                   track_pdiff=track_pdiff)
 
 
 def rollout_model(sgp: SympGP | list[SympGP],
                   aux: AuxGP | list[AuxGP | None] | None, q0: Tensor,
                   p0: Tensor, nm: int, *,
-                  mod_q: float | None = 2.0 * math.pi, iters: int = 5,
+                  mod_q: float | None = 2.0 * math.pi,
+                  mod_p: float | None = None, iters: int = 5,
+                  explicit: bool = False, track_pdiff: bool = False,
                   loss_check: bool = False, loss_at_new_q: bool = False,
                   deployment_jitter: float | None = 1e-3,
                   dtype: torch.dtype = torch.float32):
@@ -493,7 +519,8 @@ def rollout_model(sgp: SympGP | list[SympGP],
     (``for_deployment``), packs them (each column rounded to ``dtype``
     once), and runs the rollout in ``dtype`` on the models' device.  The
     whole trajectory lives in device memory, so the time axis is not
-    chunked.  Returns (Q, P), each (nm, B).
+    chunked.  Returns (Q, P), or (Q, P, D) with ``track_pdiff``, each
+    (nm, B).
     """
     sgps = list(sgp) if isinstance(sgp, (list, tuple)) else [sgp]
     auxes = (list(aux) if isinstance(aux, (list, tuple))
@@ -502,7 +529,8 @@ def rollout_model(sgp: SympGP | list[SympGP],
         sgps = [s.for_deployment(deployment_jitter) for s in sgps]
         auxes = [a.for_deployment(deployment_jitter) if a is not None
                  else None for a in auxes]
-    pm = pack_models_split(sgps, auxes, mod_q=mod_q, dtype=dtype)
+    pm = pack_models_split(sgps, auxes, mod_q=mod_q, mod_p=mod_p,
+                           dtype=dtype)
     dev = sgps[0].device
     if q0.device != dev or p0.device != dev:
         raise ValueError(f"initial conditions on {q0.device}, models on "
@@ -511,4 +539,5 @@ def rollout_model(sgp: SympGP | list[SympGP],
     p0 = p0.to(dtype).contiguous()
     return rollout_in_kernel(pm, q0, p0, nm, iters=iters,
                              loss_check=loss_check,
-                             loss_at_new_q=loss_at_new_q)
+                             loss_at_new_q=loss_at_new_q, explicit=explicit,
+                             track_pdiff=track_pdiff)

@@ -9,7 +9,9 @@ on a machine with the card alone:
 (``--noconftest``: the suite's conftest imports JAX.)  Tolerances:
 float64 every step of a 100-step rollout at 1e-9 (two summation orders
 and fused vs separate exps, ~1e-15 per step, on mostly regular orbits);
-float32 at steps 1-2 at 2e-5, as ``tests/test_pallas_step.py``.
+float32 at steps 1-2 at 2e-5, as ``tests/test_pallas_step.py``.  The
+explicit update, Algorithm 2 and mod_p / pdiff are held the same way, at
+every team size.
 """
 
 import dataclasses
@@ -82,6 +84,14 @@ def test_kernel_rejects_cpu_mix(cuda):
     q0 = torch.zeros(8, dtype=torch.float32, device=cuda)
     with pytest.raises(ValueError, match="float32"):
         cs.rollout_in_kernel(pm, q0, q0.cpu(), 3)
+
+
+def _circ(d, period):
+    """A difference of two angles on their circle of ``period`` (as it is
+    where ``period`` is None)."""
+    if period is None:
+        return d
+    return torch.remainder(d + period / 2, period) - period / 2
 
 
 def _diff(a, b) -> float:
@@ -380,3 +390,185 @@ def test_pack_models_one_map_unchanged(cuda):
         Q, P = cs.rollout_in_kernel(pm, q0, p0, 50, loss_check=True)
         assert torch.equal(Q.view(torch.int32), Q1.view(torch.int32))
         assert torch.equal(P.view(torch.int32), P1.view(torch.int32))
+
+
+# --- the explicit update, Algorithm 2 and mod_p / pdiff ---------------------
+
+# mode -> (kernel, rollout keywords, mod_p); the wrap modes start the
+# orbits at P across 0, where the wrap sends them near 2 pi
+NEW_MODES = {
+    "explicit": ("per_se", dict(explicit=True), None),
+    "explicit_se_se": ("se_se", dict(explicit=True), None),
+    "sum": ("sum_per_se", {}, None),
+    "implicit_wrap": ("per_se", dict(track_pdiff=True), 2 * math.pi),
+    "explicit_wrap": ("per_se_freq", dict(explicit=True, track_pdiff=True),
+                      2 * math.pi),
+    "sum_wrap": ("sum_per_se", dict(track_pdiff=True), 2 * math.pi),
+}
+
+
+def _mode_models(mode, n, dtype, device):
+    """Toy models of the mode's kernel on ``n`` points (an aux GP for the
+    implicit map only), packed over exactly ``n``, and its keywords."""
+    name, kw, mod_p = NEW_MODES[mode]
+    X, z, Xp, zp = toy_data(n, seed=1)
+    na = min(n, AUX_POINTS)
+    k = kv.get_kernel(name)
+    params = [0.9, 1.2, 0.55][: k.n_params]
+    f64 = dict(dtype=torch.float64, device=device)
+    sgp = SympGP.create(k, params, 1.5, 1e-2, torch.tensor(X, **f64), z)
+    aux = (AuxGP.create(k, params, 1.5, 1e-2, torch.tensor(Xp[:na], **f64),
+                        zp[:na]) if mode.startswith("implicit") else None)
+    pm = cs.pack_models(sgp, aux, mod_q=2 * math.pi, mod_p=mod_p,
+                        dtype=dtype)
+    return _truncated(pm, n), kw
+
+
+def _mode_ics(mode, dtype, device, b, seed=2):
+    q0, p0 = (torch.tensor(x, dtype=dtype, device=device)
+              for x in ics(seed, b=b))
+    return q0, (p0 * 2 if NEW_MODES[mode][2] else p0.abs())
+
+
+@pytest.mark.parametrize("mode", list(NEW_MODES))
+@pytest.mark.parametrize("team,n", TEAMS_F64)
+def test_new_modes_forced_team_float64(cuda, mode, team, n):
+    """Every team size in each new mode against the plain version: 1e-9
+    over 100 steps (pdiff too), the same NaN pattern; the loss check at
+    the old q in the modes without the wrap."""
+    pm, kw = _mode_models(mode, n, torch.float64, cuda)
+    q0, p0 = _mode_ics(mode, torch.float64, cuda, 77)
+    loss = pm.mod_p is None
+    before = cs.LAUNCHES
+    got = cs._launch(pm, q0, p0, 100, 5, loss_check=loss, team=team, **kw)
+    assert cs.LAUNCHES == before + 1
+    ref = cs.rollout_reference(pm, q0, p0, 100, loss_check=loss, **kw)
+    assert len(got) == len(ref) == (3 if kw.get("track_pdiff") else 2)
+    for g, r in zip(got, ref):
+        assert torch.equal(torch.isnan(g), torch.isnan(r))
+        assert _diff(g, r) <= 1e-9
+    if pm.mod_p:
+        P = got[1][1:]
+        assert float(P.min()) >= 0 and float(P.max()) <= 2 * math.pi
+        assert float((got[2] - got[1]).abs().max()) > 6  # some wrapped
+
+
+@pytest.mark.parametrize("mode", list(NEW_MODES))
+@pytest.mark.parametrize("team,n", TEAMS + TEAMS_LARGE)
+def test_new_modes_forced_team_float32(cuda, mode, team, n):
+    """float32 at steps 1-2, the same NaN pattern: up to 100 points at
+    1e-4 (as test_kernel_forced_team_float32); from 1000 on the sums carry
+    more float32 rounding than that (Algorithm 2 at team 256: 1.08e-4 on
+    an H100; the sum kernel's |alpha| is ~30x the product kernel's), so
+    there both are held against the float64 rollout of the same float32
+    columns, the kernel's L2 error within 3x the plain version's, as
+    test_kernel_forced_team_float32_large_n; the wrapped Q and P on their
+    circles.  TEAMS_LARGE runs the instances that hold 16 points a lane
+    at thousands of points, as standard_map_large's rollout at N=4096;
+    there the float32 P carries ~3e-4 of rounding, so an orbit that the
+    float64 rollout puts within 3x the plain version's P error of the
+    loss boundary may be lost a step apart in the two (on an H100, one
+    orbit of 301 at 8000 points, 1.4e-4 below P = 0): the NaN patterns
+    are held on the other orbits, which must be at least 98 %."""
+    pm, kw = _mode_models(mode, n, torch.float32, cuda)
+    q0, p0 = _mode_ics(mode, torch.float32, cuda, 301, seed=3)
+    loss = pm.mod_p is None
+    got = cs._launch(pm, q0, p0, 3, 5, loss_check=loss, team=team, **kw)
+    ref = cs.rollout_reference(pm, q0, p0, 3, loss_check=loss, **kw)
+    if n <= 100:
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(npy(torch.isnan(g)),
+                                          npy(torch.isnan(r)))
+        assert max(_diff(g[1:3], r[1:3]) for g, r in zip(got, ref)) <= 1e-4
+        return
+    exact = dataclasses.replace(
+        pm, **{f: getattr(pm, f).double() for f in (
+            "uq", "uP", "a0", "a1", "auxq", "auxp", "auxa", "scal")})
+    x = cs.rollout_reference(exact, q0.double(), p0.double(), 3,
+                             loss_check=loss, **kw)
+    held = torch.ones_like(q0, dtype=torch.bool)
+    if loss and (team, n) in TEAMS_LARGE:
+        dP = (ref[1][1:3].double() - x[1][1:3]).abs()
+        band = 3 * float(dP[~torch.isnan(dP)].max())
+        held = ~_near_loss_boundary(exact, q0, p0, kw, band)
+        assert int(held.sum()) >= 0.98 * len(held)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(npy(torch.isnan(g[:, held])),
+                                      npy(torch.isnan(r[:, held])))
+
+    periods = (2 * math.pi, pm.mod_p, None)
+
+    def err(out) -> float:
+        d = torch.cat([_circ(o[1:3].double() - e[1:3], per).reshape(-1)
+                       for o, e, per in zip(out, x, periods)])
+        return float(d[~torch.isnan(d)].norm())
+
+    assert err(got) <= 3 * err(ref)
+
+
+def _near_loss_boundary(exact, q0, p0, kw, band):
+    """Orbits whose loss at step 1 or 2 the float64 rollout of the
+    ``exact`` columns (no loss check) leaves within ``band`` of the
+    boundary: the check at the old q decides differently for P - band and
+    P + band."""
+    Q, P = cs.rollout_reference(exact, q0.double(), p0.double(), 3,
+                                **kw)[:2]
+    near = torch.zeros_like(q0, dtype=torch.bool)
+    for i in (1, 2):
+        near |= (cs._tokamak_lost(P[i] - band, Q[i - 1])
+                 != cs._tokamak_lost(P[i] + band, Q[i - 1]))
+    return near
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", ["implicit_wrap", "explicit_wrap",
+                                  "sum_wrap"])
+def test_pdiff_rows_of_lost_orbits(cuda, mode, dtype):
+    """The loss check at the old q with pdiff: the kernel flags a lost
+    orbit a step late and rewrites its row; D's row is rewritten with Q
+    and P, and D stays NaN from there on, as in the plain version.  Orbits
+    near P = 0, lost over several steps; teams of 8 share warps."""
+    pm, kw = _mode_models(mode, 40, dtype, cuda)
+    q0, p0 = _mode_ics(mode, dtype, cuda, 64, seed=4)
+    p0 = p0.abs() * 0.3
+    Q, P, D = cs._launch(pm, q0, p0, 60, 5, loss_check=True, team=8, **kw)
+    Qr, Pr, Dr = cs.rollout_reference(pm, q0, p0, 60, loss_check=True, **kw)
+    lost = torch.isnan(Pr)
+    first = lost.float().argmax(0)[lost[-1]]  # step each lost orbit is lost
+    assert 0 < int(lost[-1].sum()) < 64 and int(first.max()) > 10
+    assert int(lost[-1].sum()) > int(lost[1].sum())
+    for g in (Q, P, D):
+        assert torch.equal(torch.isnan(g), lost)
+    assert torch.equal(lost, torch.cummax(lost.int(), 0).values.bool())
+    steps, atol = (60, 1e-9) if dtype == torch.float64 else (3, 1e-4)
+    assert max(_diff(a[:steps], b[:steps])
+               for a, b in ((Q, Qr), (P, Pr), (D, Dr))) <= atol
+
+
+@pytest.mark.parametrize("mode", list(NEW_MODES))
+def test_new_modes_bitwise_deterministic(cuda, mode):
+    pm, kw = _mode_models(mode, 40, torch.float32, cuda)
+    q0, p0 = _mode_ics(mode, torch.float32, cuda, 1000, seed=5)
+    a = cs.rollout_in_kernel(pm, q0, p0, 200, **kw)
+    b = cs.rollout_in_kernel(pm, q0, p0, 200, **kw)
+    for x, y in zip(a, b):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_wrap_instance_without_mod_p_same_bits(cuda, dtype):
+    """pdiff without mod_p runs the implicit wrap instance with the wrap
+    off: Q and P to the bit of the implicit instance, which the new modes
+    leave as it was, and D the running sum of P's steps (= P here)."""
+    sgp, aux = _models("per_se", cuda)
+    pm = cs.pack_models(sgp, aux, mod_q=2 * math.pi, dtype=dtype)
+    q0, p0 = (torch.tensor(x, dtype=dtype, device=cuda)
+              for x in ics(6, b=500))
+    Q1, P1 = cs.rollout_in_kernel(pm, q0, p0, 50, loss_check=True)
+    Q, P, D = cs.rollout_in_kernel(pm, q0, p0, 50, loss_check=True,
+                                   track_pdiff=True)
+    it = torch.int32 if dtype == torch.float32 else torch.int64
+    assert torch.equal(Q.view(it), Q1.view(it))
+    assert torch.equal(P.view(it), P1.view(it))
+    assert torch.equal(torch.isnan(D), torch.isnan(P))
+    assert _diff(D, P) <= (1e-4 if dtype == torch.float32 else 1e-12)

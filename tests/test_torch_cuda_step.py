@@ -5,7 +5,8 @@ mode on the CPU, as ``tests/test_pallas_step.py`` runs it).
 float32 orbits decohere between any two summation orders within tens of
 steps, so float32 trajectories are compared at steps 1-4 with the
 tolerances of ``tests/test_pallas_step.py`` (2e-5 after one step, 5e-4
-after three).  Split cycling and the loss check at the new q:
+after three), the explicit update, Algorithm 2 and mod_p / pdiff
+included.  Split cycling and the loss check at the new q:
 ``test_torch_split.py``.  The kernel itself needs a card:
 ``test_torch_cuda_kernel.py``.
 """
@@ -157,14 +158,158 @@ def test_rollout_in_kernel_cpu_runs_reference():
 @pytest.mark.parametrize("mode", ["explicit", "track_pdiff", "mod_p",
                                   "sum_kernel"])
 def test_unsupported_modes_raise(mode):
+    """The explicit update, Algorithm 2 and mod_p / pdiff run with one map
+    and the loss check at the old q: with Split cycling (two sub-maps) or
+    the check at the new q they raise, in the kernel's wrapper and in its
+    plain version alike; the same one-map call runs."""
     sgp, aux = f32_models("sum_per_se" if mode == "sum_kernel" else "per_se")
     ts, ta = jax_models_to_port(sgp, aux)
-    pm = cs.pack_models(ts, ta, mod_q=2 * np.pi,
-                        mod_p=2 * np.pi if mode == "mod_p" else None)
+    mod_p = 2 * np.pi if mode == "mod_p" else None
+    pm = cs.pack_models_split([ts, ts], [ta, ta], mod_q=2 * np.pi,
+                              mod_p=mod_p)
+    one = cs.pack_models(ts, ta, mod_q=2 * np.pi, mod_p=mod_p)
     kw = {m: True for m in ("explicit", "track_pdiff") if m == mode}
-    q0, p0 = ics(5, b=8)
-    with pytest.raises(NotImplementedError, match="does not cover"):
-        cs.rollout_in_kernel(pm, f32(q0), f32(p0), 2, **kw)
+    q0, p0 = f32(ics(5, b=8)[0]), f32(ics(5, b=8)[1])
+    for call in (cs.rollout_in_kernel, cs.rollout_reference, cs._launch):
+        with pytest.raises(NotImplementedError, match="does not cover"):
+            call(pm, q0, p0, 2, 5, False, **kw)
+        with pytest.raises(NotImplementedError, match="new q"):
+            call(one, q0, p0, 2, 5, True, loss_at_new_q=True, **kw)
+    out = cs.rollout_in_kernel(one, q0, p0, 2, **kw)
+    assert len(out) == (3 if mode == "track_pdiff" else 2)
+
+
+# --- the explicit update, Algorithm 2 and mod_p / pdiff ----------------------
+# (the cases of tests/test_pallas_step.py, with its tolerances)
+
+
+@pytest.mark.parametrize("name", PRODUCT)
+def test_reference_explicit_product_matches_pallas(name):
+    """Explicit product update P = p - pGP(q, p): no Newton, no aux."""
+    sgp, aux = f32_models(name, seed=7)
+    q0, p0 = ics(7)
+    pj = ps.pack_models(sgp, aux, mod_q=2 * np.pi)
+    Qj, Pj = ps.rollout_in_kernel(pj, jnp.asarray(q0, jnp.float32),
+                                  jnp.asarray(p0, jnp.float32), 2,
+                                  explicit=True, interpret=True)
+    pt = cs.pack_models(*jax_models_to_port(sgp, aux), mod_q=2 * np.pi)
+    Qt, Pt = cs.rollout_reference(pt, f32(q0), f32(p0), 2, explicit=True)
+    np.testing.assert_allclose(npy(Pt[1]), np.asarray(Pj[1]), atol=2e-5)
+    np.testing.assert_allclose(npy(Qt[1]), np.asarray(Qj[1]), atol=2e-5)
+    # the implicit map lands elsewhere: the flag is taken
+    _, Pi = cs.rollout_reference(pt, f32(q0), f32(p0), 2)
+    assert float((Pi[1] - Pt[1]).abs().max()) > 1e-3
+
+
+def test_reference_sum_kernel_algorithm2_matches_pallas():
+    """sum_per_se: Algorithm 2 without asking (kind 3 implies explicit),
+    no aux model, three steps."""
+    sgp, _ = f32_models("sum_per_se", seed=4)
+    q0, p0 = ics(4)
+    pj = ps.pack_models(sgp, None, mod_q=2 * np.pi)
+    Qj, Pj = ps.rollout_in_kernel(pj, jnp.asarray(q0, jnp.float32),
+                                  jnp.asarray(p0, jnp.float32), 3,
+                                  interpret=True)
+    pt = cs.pack_models(*jax_models_to_port(sgp, None), mod_q=2 * np.pi)
+    assert pt.kind == 3 and float(pt.scal[0, 6]) == 0.0
+    Qt, Pt = cs.rollout_in_kernel(pt, f32(q0), f32(p0), 3)
+    for i in (1, 2):
+        np.testing.assert_allclose(npy(Pt[i]), np.asarray(Pj[i]), atol=5e-5)
+        np.testing.assert_allclose(npy(Qt[i]), np.asarray(Qj[i]), atol=5e-5)
+
+
+@pytest.mark.parametrize("loss_check", [False, True])
+def test_reference_mod_p_and_pdiff_matches_pallas(loss_check):
+    """mod_p wrap with the unwrapped momentum as a third output (row 0 =
+    p0), the standard map's mode; with the loss check at the old q a lost
+    orbit's pdiff is NaN from its row on."""
+    sgp, aux = f32_models("per_se", seed=8)
+    q0, p0 = ics(8)
+    p0 = p0 * 8 + 3.0  # P crosses 0 and 2 pi
+    mod_p = 2 * np.pi
+    pj = ps.pack_models(sgp, aux, mod_q=2 * np.pi, mod_p=mod_p)
+    Qj, Pj, Dj = ps.rollout_in_kernel(
+        pj, jnp.asarray(q0, jnp.float32), jnp.asarray(p0, jnp.float32), 4,
+        loss_check=loss_check, track_pdiff=True, interpret=True)
+    pt = cs.pack_models(*jax_models_to_port(sgp, aux), mod_q=2 * np.pi,
+                        mod_p=mod_p)
+    Qt, Pt, Dt = cs.rollout_in_kernel(pt, f32(q0), f32(p0), 4,
+                                      loss_check=loss_check,
+                                      track_pdiff=True)
+    np.testing.assert_array_equal(npy(Dt[0]), np.float32(p0))
+    P = npy(Pt[1:])
+    assert np.nanmin(P) >= 0 and np.nanmax(P) <= np.float32(mod_p)
+    assert np.nanmax(np.abs(npy(Dt) - npy(Pt))) > 6  # some orbits wrapped
+    lost = np.isnan(npy(Pt))
+    assert (lost.any() and not lost.all()) == loss_check
+    np.testing.assert_array_equal(np.isnan(npy(Dt)), lost)
+    for i in range(1, 4):
+        for a, b in ((Pt, Pj), (Qt, Qj), (Dt, Dj)):
+            np.testing.assert_allclose(npy(a[i]), np.asarray(b[i]),
+                                       atol=5e-4)
+
+
+@pytest.mark.parametrize("mode", ["explicit", "sum", "implicit_pdiff"])
+def test_reference_new_modes_float64_match_fast_apply(mode):
+    """float64 plain version over the packed columns against the JAX fast
+    path on the unpacked models: 1e-12 over six steps, the wrap into
+    [0, 2 pi) and pdiff included (the sum kernel's |alpha| is ~30x the
+    product kernel's at this jitter, and sig folded into it moves the last
+    digit by as much: 5e-12 there)."""
+    X, z, Xp, zp = toy_data(20, seed=3)
+    k = jvar.SUM_PER_SE if mode == "sum" else jvar.PER_SE
+    sgp = SympGP.create(k, jnp.asarray([0.9, 1.2]), 1.5, 1e-4,
+                        jnp.asarray(X), jnp.asarray(z))
+    aux = None if mode != "implicit_pdiff" else AuxGP.create(
+        k, jnp.asarray([0.9, 1.2]), 1.5, 1e-4, jnp.asarray(Xp),
+        jnp.asarray(zp), delta=True)
+    q0, p0 = ics(3, b=32)
+    p0 = p0 * 8 + 3.0
+    cfg = JCfg(explicit=mode != "implicit_pdiff", mod_p=2 * np.pi,
+               track_pdiff=True, newton_maxiter=5)
+    ref = jfa.apply_map_fast(sgp, aux, jnp.asarray(q0), jnp.asarray(p0), 6,
+                             cfg, fixed_iters=True)
+    pt = cs.pack_models(*jax_models_to_port(sgp, aux), mod_q=2 * np.pi,
+                        mod_p=2 * np.pi, dtype=torch.float64)
+    got = cs.rollout_reference(pt, tt(q0), tt(p0), 6, iters=5,
+                               explicit=mode == "explicit",
+                               track_pdiff=True)
+    tol = 5e-12 if mode == "sum" else 1e-12
+    for a, b in zip(got, (ref.q, ref.p, ref.pdiff)):
+        np.testing.assert_allclose(npy(a), np.asarray(b), rtol=tol,
+                                   atol=tol)
+
+
+def test_rollout_model_mod_p_matches_rollout_pallas():
+    """Model level, the standard map's call: mod_q = mod_p = 2 pi, pdiff,
+    8 Newton iterations, float32 (negative P wraps to near 2 pi); and the
+    sum kernel's, which returns (Q, P).  Deployment jitter 1e-3, as
+    test_rollout_model_matches_rollout_pallas (the standard map's 1e-5 in
+    test_torch_standard_map.py)."""
+    X, z, Xp, zp = toy_data(24, seed=6)
+    sgp = SympGP.create(jvar.PER_SE, jnp.asarray([0.9, 1.2]), 1.5, 1e-8,
+                        jnp.asarray(X), jnp.asarray(z))
+    aux = AuxGP.create(jvar.PER_SE, jnp.asarray([0.9, 1.2]), 1.5, 1e-8,
+                       jnp.asarray(Xp), jnp.asarray(zp), delta=True)
+    q0, p0 = ics(6, b=40)
+    kw = dict(mod_q=2 * np.pi, mod_p=2 * np.pi, track_pdiff=True, iters=8,
+              deployment_jitter=1e-3)
+    outj = ps.rollout_pallas(sgp, aux, jnp.asarray(q0), jnp.asarray(p0), 3,
+                             **kw)
+    ts, ta = jax_models_to_port(sgp, aux)
+    outt = cs.rollout_model(ts, ta, tt(q0), tt(p0), 3, **kw)
+    assert len(outt) == 3 and outt[2].dtype == torch.float32
+    assert float(outt[1][1].max()) > 5.0  # wrapped
+    for a, b in zip(outt, outj):
+        np.testing.assert_allclose(npy(a[1]), np.asarray(b[1]), atol=5e-5)
+    s2 = SympGP.create(jvar.SUM_PER_SE, jnp.asarray([0.9, 1.2]), 1.5, 1e-8,
+                       jnp.asarray(X), jnp.asarray(z))
+    Qj, Pj = ps.rollout_pallas(s2, None, jnp.asarray(q0), jnp.asarray(p0),
+                               3, deployment_jitter=1e-3)
+    Qt, Pt = cs.rollout_model(jax_models_to_port(s2, None)[0], None, tt(q0),
+                              tt(p0), 3, deployment_jitter=1e-3)
+    np.testing.assert_allclose(npy(Pt[1]), np.asarray(Pj[1]), atol=5e-5)
+    np.testing.assert_allclose(npy(Qt[1]), np.asarray(Qj[1]), atol=5e-5)
 
 
 def test_validate_rejects_bad_inputs():

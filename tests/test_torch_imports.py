@@ -60,12 +60,38 @@ def test_large_n_modules_import_without_jax():
     assert r.returncode == 0, r.stderr
 
 
+def test_standard_map_and_pendulum_modules_import_without_jax():
+    """The standard map's and the pendulum's modules by name."""
+    code = (
+        "import importlib\n"
+        "for n in ('systems.standard_map', 'systems.pendulum',\n"
+        "          'workloads.standard_map', 'workloads.pendulum_implicit',\n"
+        "          'workloads.pendulum_explicit',\n"
+        "          'workloads.pendulum_period_unknown'):\n"
+        "    importlib.import_module('sympgpr_tpu_torch.' + n)\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in\n"
+        "            ('jax', 'sympgpr_tpu') and sys.modules[m] is not None]\n"
+        "from sympgpr_tpu_torch.gp import likelihood, train\n"
+        "from sympgpr_tpu_torch.eval import metrics\n"
+        "assert hasattr(likelihood, 'nll_separable')\n"
+        "assert hasattr(train, 'fit_sympgp_separable')\n"
+        "assert hasattr(metrics, 'pendulum_energy')\n")
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+
+
 def test_cli_without_jax():
     r = _run("import runpy; sys.argv = ['sympgpr_tpu_torch', 'list'];"
              "runpy.run_module('sympgpr_tpu_torch', run_name='__main__')")
     assert r.returncode == 0, r.stderr
-    assert r.stdout.split() == ["tokamak", "tokamak_kernel", "tokamak_large",
-                                "tokamak_split", "tokamak_split_kernel"]
+    assert r.stdout.split() == [
+        "pendulum_explicit", "pendulum_explicit_kernel", "pendulum_implicit",
+        "pendulum_implicit_kernel", "pendulum_period_unknown",
+        "pendulum_period_unknown_kernel", "standard_map",
+        "standard_map_explicit", "standard_map_explicit_kernel",
+        "standard_map_kernel", "standard_map_large", "tokamak",
+        "tokamak_kernel", "tokamak_large", "tokamak_split",
+        "tokamak_split_kernel"]
 
 
 def test_cli_cuda_device_needs_a_gpu():
