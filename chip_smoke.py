@@ -2,7 +2,7 @@
 """GPU smoke run of the PyTorch port (``sympgpr_tpu_torch``).
 
 Builds every hand-written CUDA kernel from the checkout's sources (one nvcc
-per source, all at once) and drives three main paths on the card:
+per source, all at once) and drives the main paths on the card:
 
 * the tokamak workload at the reference configuration (N=80 training
   crossings, 30 test orbits, nm=1000) through the rollout kernel;
@@ -25,9 +25,17 @@ per source, all at once) and drives three main paths on the card:
   ``modes_kernel_vs_plain`` holds the explicit update, Algorithm 2 and
   mod_p / pdiff against the plain version on these models, shows that its
   gates fail two wrong trajectories, and times each mode at 32768 x 1000
-  (N=20) and at 30 x 200 (N=4096).
+  (N=20) and at 30 x 200 (N=4096);
+* the perturbed pendulum and Henon-Heiles (``pert_henon_main``:
+  ``pert_pendulum`` and ``henon_heiles`` at RESULTS.md's configurations,
+  30 x 100 and 37 x 500, through the rollout kernel's periodic instance
+  with an aux model of the absolute P and its SE x SE instance without a
+  wrap of q, and in float64 on the plain fast path);
+  ``pert_henon_kernel_vs_plain`` holds the kernel against its plain
+  version on both fitted models, times both rollouts, and runs the
+  generic autodiff map path on the card against the fast path.
 
-Each kernel is held against its plain PyTorch version at the main path's
+Each kernel is held against its plain PyTorch version at the main paths'
 shapes, and both are timed with CUDA events around one call (best of 3),
 beside the least time the card could take for the same work (bytes over
 HBM rate, or operations over the rate of their unit) and, where one
@@ -1420,10 +1428,10 @@ def _periods(pm, n_out: int) -> list:
 
 
 def _one_step_along(pm, traj, kw):
-    """The kernel's one step from each of the plain trajectory's rows 0 ..
-    nm - 2 (one launch over all of them as orbits) against the plain
-    trajectory's next rows: the largest difference in Q, P and, with
-    pdiff, the step's unwrapped increment."""
+    """The kernel's one step (8 Newton iterations) from each of the plain
+    trajectory's rows 0 .. nm - 2 (one launch over all of them as orbits)
+    against the plain trajectory's next rows: the largest difference in
+    Q, P and, with pdiff, the step's unwrapped increment."""
     from sympgpr_tpu_torch.ops import cuda_step as cs
 
     q, p = (t[:-1].reshape(-1).contiguous() for t in traj[:2])
@@ -1709,6 +1717,244 @@ def phase_modes_kernel_vs_plain(dev, stdmap, pendulum, large):
     return res, timing
 
 
+# --- the perturbed pendulum and Henon-Heiles ---------------------------------
+
+# workload -> (training-error gate, float32 one-step MSE gate, float64
+# one-step MSE of RESULTS.md:12 / :15 (CPU, float64), held within 2x); the
+# gates are those of tests/test_workloads.py (the Pallas ones for float32)
+PERT_HENON = {
+    "pert_pendulum": (1e-10, 1e-3, 1.1e-7),
+    "henon_heiles": (1e-12, 2e-3, 1.9e-5),
+}
+# the generic autodiff map path against the fast path on the card: float64
+# rows within 1e-12 + 1e-12 |row| (the CPU tests' tolerance)
+GENERIC_STEPS = 5
+TOL_GENERIC = 1e-12
+
+
+def _pert_henon_run(name: str, backend: str, dev) -> dict:
+    """One run of the workload at its RESULTS.md configuration (the
+    perturbed pendulum: N = 55 before the disc filter, 30 orbits, nm =
+    100; Henon-Heiles: N = 55, 37 orbits, nm = 500)."""
+    if name == "pert_pendulum":
+        from sympgpr_tpu_torch.systems.pert_pendulum import \
+            PertPendulumConfig
+        from sympgpr_tpu_torch.workloads import pert_pendulum as wl
+
+        return wl.run(PertPendulumConfig(), backend=backend, device=dev)
+    from sympgpr_tpu_torch.systems.henon_heiles import HenonConfig
+    from sympgpr_tpu_torch.workloads import henon_heiles as wl
+
+    return wl.run(HenonConfig(), backend=backend, device=dev)
+
+
+def _stage_times(out: dict, prefix: str = "") -> dict:
+    return {f"{prefix}{k}": out[k]
+            for k in ("t_data", "t_train", "t_apply", "t_reference")}
+
+
+def _device_kernels(fn) -> int | None:
+    """Kernels the card ran for ``fn()`` (``torch.profiler``), or None
+    where the profiler records no device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    cuda = torch.autograd.DeviceType.CUDA
+    n = sum(e.count for e in prof.key_averages()
+            if getattr(e, "device_type", None) == cuda)
+    return n or None
+
+
+def _integrator_launches(dev) -> dict:
+    """Kernels a step of the two eager integrators launches: each run
+    for 100 and for 200 steps under the profiler; the difference over 100
+    steps is a step's, the rest the run's fixed part (the Henon-Heiles
+    polish of all crossings at once), and the launches of the workloads'
+    data and reference runs follow from them."""
+    from sympgpr_tpu_torch.systems import henon_heiles as hh
+    from sympgpr_tpu_torch.systems import pert_pendulum as pp
+
+    cfg_h, cfg_p = hh.HenonConfig(), pp.PertPendulumConfig()
+    z_h = torch.tensor(hh.training_ics(cfg_h), dtype=torch.float64,
+                       device=dev)
+    z_p = torch.tensor(pp.gen_samples_circle([0.0, 0.0], cfg_p.radius,
+                                             cfg_p.N), dtype=torch.float64,
+                       device=dev)
+    runs = {"henon_integrate_sections":
+            lambda n: hh.integrate_sections(cfg_h, z_h, n, 2),
+            "pert_rk_pmap": lambda n: pp.rk_pmap(z_p, cfg_p.e, cfg_p.om, n)}
+    # the workloads' runs: steps of each integrator
+    uses = {"henon_integrate_sections": {
+                "training_3000": int(4 * 7.5 / cfg_h.dt),
+                "reference_8_cuts_7500": int(10 * 7.5 / cfg_h.dt)},
+            "pert_rk_pmap": {
+                "training_1500": cfg_p.rk_steps_train,
+                "reference_99_periods": (cfg_p.nm - 1) * cfg_p.rk_steps_test}}
+    out = {}
+    for name, fn in runs.items():
+        fn(100)  # warm-up
+        n100, n200 = _device_kernels(lambda: fn(100)), \
+            _device_kernels(lambda: fn(200))
+        if n100 is None or n200 is None:
+            out[name] = None
+            continue
+        per_step = (n200 - n100) / 100
+        fixed = n100 - 100 * per_step
+        out[name] = dict(per_step=per_step, fixed=fixed, **{
+            k: fixed + per_step * n for k, n in uses[name].items()})
+    return out
+
+
+def phase_pert_henon_main(dev):
+    """pert_pendulum and henon_heiles at RESULTS.md's configurations
+    through the kernel backend (float32: the periodic instance with an aux
+    model of the absolute P at deployment jitter 1e-5; the SE x SE
+    instance without a wrap of q at 1e-3) and the float64 generic
+    backend."""
+    from sympgpr_tpu_torch.ops import cuda_step
+
+    res, models = {}, {}
+    _counts_zero()
+    for name in PERT_HENON:
+        out = _pert_henon_run(name, "kernel", dev)
+        t = out["traj"]
+        res[name] = dict(
+            training_error=out["training_error"],
+            one_step_mse=out["one_step_mse"], hyp=out["hyp"].tolist(),
+            n_train=int(out["models"][0].n_train),
+            finite=bool(torch.isfinite(t.q).all() & torch.isfinite(t.p)
+                        .all()),
+            dtype=str(t.q.dtype), shape=list(t.q.shape),
+            **_stage_times(out))
+        models[name] = out["models"]
+    launches = cuda_step.LAUNCHES
+    for name in PERT_HENON:
+        out = _pert_henon_run(name, "generic", dev)
+        res[name].update(
+            f64_one_step_mse=out["one_step_mse"],
+            f64_training_error=out["training_error"],
+            f64_dtype=str(out["traj"].q.dtype),
+            **_stage_times(out, "f64_"))
+    data_launches = _integrator_launches(dev)
+    emit("pert_henon_main", launches=launches, data_launches=data_launches,
+         gates={k: v[:2] for k, v in PERT_HENON.items()},
+         results_rows={k: v[2] for k, v in PERT_HENON.items()}, **res)
+    assert launches == 2, "the two workloads launched no rollout kernel"
+    for name, (gate_train, gate32, row) in PERT_HENON.items():
+        r = res[name]
+        assert r["dtype"] == "torch.float32" and r["finite"], (name, r)
+        assert r["f64_dtype"] == "torch.float64", (name, r)
+        assert r["training_error"] < gate_train, (name, r)
+        assert r["f64_training_error"] < gate_train, (name, r)
+        assert r["one_step_mse"] < gate32, (name, r)
+        assert 0.5 <= r["f64_one_step_mse"] / row <= 2.0, (name, r)
+    return models, launches
+
+
+def _workload_ics(name: str, dev):
+    """The workload's test ICs, float64 on ``dev``."""
+    f64 = dict(dtype=torch.float64, device=dev)
+    if name == "pert_pendulum":
+        from sympgpr_tpu_torch.systems import pert_pendulum as pp
+
+        return tuple(torch.tensor(x, **f64) for x in
+                     pp.test_initial_conditions(pp.PertPendulumConfig()))
+    from sympgpr_tpu_torch.systems import henon_heiles as hh
+
+    cfg = hh.HenonConfig()
+    z0 = hh.test_ics(cfg)
+    return (torch.tensor(z0[:, 1] * cfg.scale, **f64),
+            torch.tensor(z0[:, 3] * cfg.scale, **f64))
+
+
+def phase_pert_henon_kernel_vs_plain(dev, models):
+    """The kernel against rollout_reference on both workloads' fitted
+    models, deployed as the workloads deploy them, over the workloads' ICs
+    and rows (30 x 100 and 37 x 500): the same NaN patterns; float64 one
+    step from each plain row within ATOL_F64; float32 at steps 1-2 against
+    the float64 rollout of the same float32 columns, and each
+    trajectory's residual against one float64 step from its own rows, the
+    kernel's L2 within 3x the plain version's (``_f32_vs_f64``).  Each
+    float32 rollout (the workload's 5 Newton iterations) timed beside its
+    plain version and its bound.  The generic autodiff path against the
+    fast path for GENERIC_STEPS steps of the Henon-Heiles model in
+    float64."""
+    from sympgpr_tpu_torch.maps.symplectic import MapConfig, apply_map
+    from sympgpr_tpu_torch.ops import cuda_step as cs
+
+    # workload: (deployment jitter, mod_q, rows)
+    setup = {"pert_pendulum": (1e-5, 2 * math.pi, 100),
+             "henon_heiles": (1e-3, None, 500)}
+    res, timing = {}, {}
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, (jitter, mod_q, nm) in setup.items():
+        sgp, aux = models[name]
+        sd, ad = sgp.for_deployment(jitter), aux.for_deployment(jitter)
+        q0, p0 = _workload_ics(name, dev)
+        r = res[name] = {"n_train": sgp.n_train, "rows": nm}
+        for dtype in (torch.float64, torch.float32):
+            pm = cs.pack_models(sd, ad, mod_q=mod_q, dtype=dtype)
+            q, p = q0.to(dtype), p0.to(dtype)
+            got = cs.rollout_in_kernel(pm, q, p, nm, iters=8)
+            sync()
+            ref = cs.rollout_reference(pm, q, p, nm, iters=8)
+            nan_equal = all(torch.equal(torch.isnan(g), torch.isnan(t))
+                            for g, t in zip(got, ref))
+            if dtype == torch.float64:
+                r["f64_step_err_all_rows"] = _one_step_along(pm, ref, {})
+                r["f64_trajectory_err"] = max(
+                    _max_diff(g, t, c)
+                    for g, t, c in zip(got, ref, _periods(pm, 2)))
+                r["f64_nan_pattern_equal"] = nan_equal
+                continue
+            f32 = _f32_vs_f64(pm, q, p, {}, got, ref)
+            f32.pop("err")
+            r.update({f"f32_{k}": v for k, v in f32.items()})
+        # timing: the workload's float32 rollout (5 Newton iterations)
+        pm = cs.pack_models(sd, ad, mod_q=mod_q)
+        q, p = q0.float().contiguous(), p0.float().contiguous()
+        ms = _time(lambda: cs.rollout_in_kernel(pm, q, p, nm))
+        plain_ms = _time(lambda: cs.rollout_reference(pm, q, p, nm))
+        b = rollout_bound(q.shape[0], nm, sgp.n_train, aux.X.shape[0], 4)
+        timing[f"{name}_{q.shape[0]}x{nm}_n{sgp.n_train}"] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"],
+            bound_by=b["bound_by"], bound_share=b["bound_ms"] / ms,
+            geometry=cs.launch_geometry(q.shape[0], pm.ns, pm.nas,
+                                        torch.float32, sm_count).__dict__)
+
+    # the generic autodiff path on the card, against the fast path
+    sgp, aux = models["henon_heiles"]
+    q0, p0 = _workload_ics("henon_heiles", dev)
+    cfg = MapConfig(mod_q=None, newton_tol=1e-12, newton_maxiter=20)
+    t0 = time.perf_counter()
+    gen = apply_map(sgp, aux, q0, p0, GENERIC_STEPS + 1, cfg,
+                    prefer_fast=False)
+    sync()
+    t_generic = time.perf_counter() - t0
+    fast = apply_map(sgp, aux, q0, p0, GENERIC_STEPS + 1, cfg)
+    excess = max(float(((g - f).abs() - TOL_GENERIC * (1 + f.abs())).max())
+                 for g, f in zip(gen[:2], fast[:2]))
+    generic = dict(steps=GENERIC_STEPS, device=str(gen.q.device),
+                   dtype=str(gen.q.dtype), t_s=t_generic,
+                   max_abs_diff=max(_max_diff(g, f)
+                                    for g, f in zip(gen[:2], fast[:2])),
+                   excess_over_tol=excess)
+    emit("pert_henon_kernel_vs_plain", models=res, timing=timing,
+         generic_vs_fast=generic, f64_atol=ATOL_F64)
+    for name, r in res.items():
+        assert r["f64_nan_pattern_equal"] and r["f32_nan_pattern_equal"], r
+        assert r["f64_step_err_all_rows"] <= ATOL_F64, (name, r)
+        assert r["f32_err_kernel"] <= r["f32_err_bound"], (name, r)
+        assert r["f32_residual_kernel"] <= r["f32_residual_bound"], (name, r)
+    assert generic["device"].startswith("cuda"), generic
+    assert generic["dtype"] == "torch.float64", generic
+    assert excess <= 0.0, generic
+    return timing
+
+
 def main() -> None:
     dev, smi = phase_device()
     # the plain versions are the yardstick: full float32 matrix products
@@ -1731,11 +1977,14 @@ def main() -> None:
     pendulum, pendulum_launches = phase_pendulum_main(dev)
     sm_large, sm_large_launches = phase_stdmap_large(dev)
     phase_modes_kernel_vs_plain(dev, stdmap, pendulum, sm_large)
+    pert_henon, pert_henon_launches = phase_pert_henon_main(dev)
+    phase_pert_henon_kernel_vs_plain(dev, pert_henon)
     b = rollout_bound(30, NM, pm32.ns, pm32.nas, 4)
     rows = [{"name": "rollout_step", "route": "cuda", "source": KERNEL_SOURCE,
              "replaces": REPLACES,
              "launches": launches + split_launches + stdmap_launches
-             + pendulum_launches + sm_large_launches["rollout"],
+             + pendulum_launches + sm_large_launches["rollout"]
+             + pert_henon_launches,
              "max_abs_err": err32, "ms": ms, "plain_ms": plain_ms,
              "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
              "library_ms": None}]

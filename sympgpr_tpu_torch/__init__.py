@@ -5,8 +5,9 @@ The PyTorch and CUDA port of the JAX package ``sympgpr_tpu``, which stays
 the reference.  This package imports no JAX: it shares only the ``.npz``
 model-artifact format with it.  Learn the generating function of a
 symplectic map from derivative observations with a GP, then iterate the
-learned map for long-time Hamiltonian dynamics (so far: the tokamak
-field-line workload, single map).
+learned map for long-time Hamiltonian dynamics (the tokamak field lines,
+one map or Split, and at large N; the pendulum, the perturbed pendulum,
+the standard map and Henon-Heiles).
 """
 
 from sympgpr_tpu_torch.kernels import (
@@ -27,7 +28,16 @@ from sympgpr_tpu_torch.gp.model import (
     save_models,
 )
 from sympgpr_tpu_torch.gp.train import fit_auxgp, fit_sympgp, minimize_lbfgs
-from sympgpr_tpu_torch.maps.symplectic import MapConfig, Trajectory, apply_map
+from sympgpr_tpu_torch.maps.symplectic import (
+    MapConfig,
+    Trajectory,
+    apply_map,
+    apply_map_split,
+    calc_P,
+    calc_Q,
+    stack_models,
+)
 from sympgpr_tpu_torch.maps.fast_apply import apply_map_fast
+from sympgpr_tpu_torch.gp.predict import predict_aux, predict_df
 
 __version__ = "0.1.0"

@@ -9,6 +9,8 @@
   python -m sympgpr_tpu_torch run standard_map_kernel --device cuda
   python -m sympgpr_tpu_torch run standard_map_large --device cuda
   python -m sympgpr_tpu_torch run pendulum_explicit_kernel --device cuda
+  python -m sympgpr_tpu_torch run pert_pendulum_kernel --device cuda
+  python -m sympgpr_tpu_torch run henon_heiles_kernel --device cuda
 
 Each workload without ``_kernel`` rolls out on the float64 fast path; with
 it, through the fused rollout in float32.
@@ -38,8 +40,9 @@ WORKLOADS = {
     "tokamak_split_kernel": ("kernel", SPLIT, 4000, "cmaes"),
     "tokamak_large": None,
 }
-# the standard map and the pendulum at the JAX CLI's configurations: name
-# -> (workload module, backend, run keywords, config fields, nm)
+# the standard map, the pendulum, the perturbed pendulum and Henon-Heiles
+# at the JAX CLI's configurations: name -> (workload module, backend, run
+# keywords, config fields, nm)
 OTHERS = {
     **{f"standard_map{m}{k}": ("standard_map", b,
                                {"method": m[1:] or "implicit"}, {}, 100)
@@ -51,7 +54,17 @@ OTHERS = {
                             ("period_unknown", {"N": 50, "Nm": 100,
                                                 "sig2_n": 1e-10}))
        for k, b in (("", "generic"), ("_kernel", "kernel"))},
+    **{f"{name}{k}": (name, b, {}, {}, nm)
+       for name, nm in (("pert_pendulum", 100), ("henon_heiles", 500))
+       for k, b in (("", "generic"), ("_kernel", "kernel"))},
     "standard_map_large": None,
+}
+# workload module -> (system module, its config class); the pendulum's
+# three workloads share PendulumConfig
+CONFIGS = {
+    "standard_map": ("standard_map", "StandardMapConfig"),
+    "pert_pendulum": ("pert_pendulum", "PertPendulumConfig"),
+    "henon_heiles": ("henon_heiles", "HenonConfig"),
 }
 
 
@@ -93,14 +106,10 @@ def _run_other(args, device):
         return
     name, backend, kw, fields, nm = OTHERS[args.workload]
     wl = importlib.import_module(f"sympgpr_tpu_torch.workloads.{name}")
-    if name == "standard_map":
-        from sympgpr_tpu_torch.systems.standard_map import StandardMapConfig
-
-        cfg = StandardMapConfig(nm=args.nm or nm)
-    else:
-        from sympgpr_tpu_torch.systems.pendulum import PendulumConfig
-
-        cfg = PendulumConfig(**fields, nm=args.nm or nm)
+    system, config = CONFIGS.get(name, ("pendulum", "PendulumConfig"))
+    Config = getattr(importlib.import_module(
+        f"sympgpr_tpu_torch.systems.{system}"), config)
+    cfg = Config(**fields, nm=args.nm or nm)
     out = wl.run(cfg, backend=backend, **kw, device=device)
     print(json.dumps(_summarize(out), default=str))
 

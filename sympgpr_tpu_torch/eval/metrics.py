@@ -1,7 +1,7 @@
 """Quality metrics (PyTorch port of ``sympgpr_tpu/eval/metrics.py``):
 energy oscillation ``Eosc = std(H)/mean(H)`` per orbit, geometric
 distance of the first mapped point to the reference orbit, and the
-pendulum's energy."""
+pendulum's and the Henon-Heiles system's energies."""
 
 from __future__ import annotations
 
@@ -44,3 +44,13 @@ def training_mse(z: Tensor, z_pred: Tensor) -> Tensor:
 def pendulum_energy(q: Tensor, p: Tensor, U0: float = 1.0) -> Tensor:
     """H = p^2/2 + U0 (1 - cos(q + pi))."""
     return p**2 / 2.0 + U0 * (1.0 - torch.cos(q + math.pi))
+
+
+def henon_energy(x: Tensor, lam: float = 1.0) -> Tensor:
+    """Henon-Heiles Hamiltonian on the full 4-D state (q1, q2, p1, p2)."""
+    q1, q2, p1, p2 = x[..., 0], x[..., 1], x[..., 2], x[..., 3]
+    return (
+        0.5 * (p1**2 + p2**2)
+        + 0.5 * (q1**2 + q2**2)
+        + lam * (q1**2 * q2 - q2**3 / 3.0)
+    )

@@ -23,7 +23,13 @@ from typing import NamedTuple
 import torch
 
 from sympgpr_tpu_torch.gp.model import AuxGP, SympGP
-from sympgpr_tpu_torch.maps.symplectic import LossFn, MapConfig, Trajectory
+from sympgpr_tpu_torch.maps.symplectic import (
+    LossFn,
+    MapConfig,
+    Trajectory,
+    _finish_step,
+    _iterate,
+)
 
 Tensor = torch.Tensor
 
@@ -199,20 +205,10 @@ def map_step(
         P0 = aux_guess(aux, q, p)
         P = newton_P(co, p, P0, cfg.newton_tol, cfg.newton_maxiter,
                      fixed_iters)
-    if loss_pre is not None:
-        P = torch.where(loss_pre(q, q, P, i), torch.nan, P)
-    dPc = P - p
-    Pw = torch.remainder(P, cfg.mod_p) if cfg.mod_p is not None else P
-    dq = q_update_sum(sgp, Pw) if is_sum else q_update(co, Pw)
-    Q = dq + q
-    if cfg.mod_q is not None:
-        Q = torch.remainder(Q, cfg.mod_q)
-    if loss_post is not None:
-        lost = loss_post(q, Q, Pw, i)
-        Pw = torch.where(lost, torch.nan, Pw)
-        Q = torch.where(lost, torch.nan, Q)
-    Q = torch.where(torch.isnan(Pw), torch.nan, Q)
-    return Q, Pw, dPc
+    return _finish_step(
+        q, p, P, i, cfg, loss_pre, loss_post,
+        (lambda Pw: q_update_sum(sgp, Pw)) if is_sum
+        else (lambda Pw: q_update(co, Pw)))
 
 
 def _check_fast(sgp: SympGP, cfg: MapConfig) -> None:
@@ -256,18 +252,8 @@ def apply_map_split_fast(
     ``apply_map_fast``."""
     for sgp in sgps:
         _check_fast(sgp, cfg)
-    q = torch.atleast_1d(q0)
-    p = torch.atleast_1d(p0)
-    pdiff = p
-    qs, ps, pds = [q], [p], [p]
-    for i in range(nm - 1):
-        m = i % len(sgps)
-        q, p, dPc = map_step(sgps[m], auxes[m], q, p, i, cfg, loss_pre,
-                             loss_post, fixed_iters)
-        qs.append(q)
-        ps.append(p)
-        if cfg.track_pdiff:
-            pdiff = pdiff + dPc
-            pds.append(pdiff)
-    return Trajectory(torch.stack(qs), torch.stack(ps),
-                      torch.stack(pds) if cfg.track_pdiff else None)
+    M = len(sgps)
+    return _iterate(
+        lambda i, q, p: map_step(sgps[i % M], auxes[i % M], q, p, i, cfg,
+                                 loss_pre, loss_post, fixed_iters),
+        q0, p0, nm, cfg.track_pdiff)

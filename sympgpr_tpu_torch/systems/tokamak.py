@@ -220,6 +220,49 @@ def integrate_fieldlines(
     return torch.stack(out)
 
 
+def _fieldline_rhs(field: TokamakField, z: Tensor, ph, rlast: Tensor):
+    """Explicit field-line ODE in (pth, th) with ph as time, for a (B, 2)
+    batch: pth' = dAph/dth - dAph/dr dAth/dth / dAth/dr, th' = -dAph/dr /
+    dAth/dr.  Returns ((B, 2) rhs, (B,) minor radius used)."""
+    r = compute_r(z[:, 0], z[:, 1], ph, rlast)
+    dApdr = dAphdr(field, r, z[:, 1], ph)
+    dApdt = dAphdth(field, r, z[:, 1], ph)
+    dAtdr = dAthdr(r, z[:, 1], ph)
+    dAtdt = dAthdth(r, z[:, 1], ph)
+    return torch.stack([dApdt - dApdr * dAtdt / dAtdr, -dApdr / dAtdr],
+                       dim=-1), r
+
+
+def integrate_fieldlines_rk4(
+    field: TokamakField,
+    pth0: Tensor,
+    th0: Tensor,
+    ph0: Tensor,
+    nph: int,
+    n_steps: int,
+    rlast0: Tensor,
+) -> Tensor:
+    """Explicit RK4 cross-integrator of the same field-line flow as the
+    semi-implicit midpoint ``timestep`` (an independent discretization: the
+    two agreeing is a physics check).  The minor radius of a step's first
+    stage seeds the Newton of the other three and of the next step.
+    Batched over B particles; returns (n_steps + 1, B, 3)."""
+    dph = 2.0 * math.pi / nph
+    z = torch.stack([pth0, th0, ph0], dim=-1)
+    rl = rlast0
+    out = [z]
+    for _ in range(n_steps):
+        y, ph = z[:, :2], z[:, 2]
+        k1, rl = _fieldline_rhs(field, y, ph, rl)
+        k2, _ = _fieldline_rhs(field, y + 0.5 * dph * k1, ph + 0.5 * dph, rl)
+        k3, _ = _fieldline_rhs(field, y + 0.5 * dph * k2, ph + 0.5 * dph, rl)
+        k4, _ = _fieldline_rhs(field, y + dph * k3, ph + dph, rl)
+        ynew = y + dph / 6.0 * (k1 + 2 * k2 + 2 * k3 + k4)
+        z = torch.cat([ynew, (ph + dph)[:, None]], dim=-1)
+        out.append(z)
+    return torch.stack(out)
+
+
 # ---------------------------------------------------------------------------
 # Workload data generation
 
@@ -320,3 +363,17 @@ def field_energy(field: TokamakField, q: Tensor, p_scaled: Tensor,
     pth = p_scaled * 1e-2
     r = compute_r(pth, q, ph, torch.full_like(pth, r_guess))
     return -Aph(field, r, q, ph)
+
+
+def safety_factor(field: TokamakField, r0: float, n_turns: int = 10,
+                  nph: int = 64, *, device: torch.device | str) -> float:
+    """q = dphi / dtheta of the field line from (r0, th = 0, ph = 0) over
+    ``n_turns`` turns of the midpoint integrator, a physics invariant of the
+    cross-integrator checks."""
+    r = _f64([r0], device)
+    zero = torch.zeros_like(r)
+    traj = integrate_fieldlines(field, Ath(r, zero, 0.0), zero, zero, nph,
+                                nph * n_turns, r)
+    dth = float(traj[-1, 0, 1] - traj[0, 0, 1])
+    dph = float(traj[-1, 0, 2] - traj[0, 0, 2])
+    return dph / dth

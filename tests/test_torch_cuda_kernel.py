@@ -572,3 +572,71 @@ def test_wrap_instance_without_mod_p_same_bits(cuda, dtype):
     assert torch.equal(P.view(it), P1.view(it))
     assert torch.equal(torch.isnan(D), torch.isnan(P))
     assert _diff(D, P) <= (1e-4 if dtype == torch.float32 else 1e-12)
+
+
+# --- the perturbed pendulum's and Henon-Heiles' instances --------------------
+
+# instance -> (kernel, aux delta, mod_q, coordinate scale): Henon-Heiles'
+# SE x SE model with an SE x SE aux model of P - p and no wrap of q, on
+# section coordinates scaled to |q|, |P| up to ~15; the perturbed
+# pendulum's periodic model with an aux model of the absolute P
+WORKLOAD_INSTANCES = {
+    "henon_se_se_no_wrap": ("se_se", True, None, 12.0),
+    "pert_absolute_aux": ("per_se", False, 2 * math.pi, 1.0),
+}
+
+
+def _workload_models(case, n, dtype, device):
+    """Seeded toy models of the instance on ``n`` points and its ICs."""
+    name, delta, mod_q, scale = WORKLOAD_INSTANCES[case]
+    rng = np.random.default_rng(n)
+    lo, hi = (-scale, scale) if mod_q is None else (0.0, 2 * math.pi)
+    q = rng.uniform(lo, hi, n)
+    P = rng.uniform(-scale, scale, n)
+    p = P + 0.05 * scale * np.sin(q / scale)
+    z = np.concatenate([p - P, 0.05 * scale * np.cos(q / scale)
+                        + 0.02 * P])
+    zp = P if not delta else P - p
+    params = [0.5 * scale + 0.4, 0.5 * scale + 0.7]
+    f64 = dict(dtype=torch.float64, device=device)
+    k = kv.get_kernel(name)
+    sgp = SympGP.create(k, params, 1.5, 1e-2,
+                        torch.tensor(np.stack([q, P], 1), **f64), z)
+    aux = AuxGP.create(k, params, 1.5, 1e-2,
+                       torch.tensor(np.stack([q, p], 1), **f64), zp,
+                       delta=delta)
+    pm = cs.pack_models(sgp, aux, mod_q=mod_q, dtype=dtype)
+    q0 = torch.tensor(rng.uniform(0.8 * lo, 0.8 * hi, 150), dtype=dtype,
+                      device=device)
+    p0 = torch.tensor(rng.uniform(-0.8 * scale, 0.8 * scale, 150),
+                      dtype=dtype, device=device)
+    return pm, q0, p0, scale
+
+
+@pytest.mark.parametrize("case", list(WORKLOAD_INSTANCES))
+@pytest.mark.parametrize("n", [20, 60])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_workload_instances_match_reference(cuda, case, n, dtype):
+    """The two workloads' new instances against the plain version: float64
+    every step of 100 at 1e-9 relative to the coordinates' scale, float32
+    at steps 1-2 at 2e-5 of it; the same NaN pattern (none lost: no loss
+    check), q left unwrapped without mod_q."""
+    pm, q0, p0, scale = _workload_models(case, n, dtype, cuda)
+    assert pm.kind == pm.aux_kind and pm.delta == (pm.mod_q is None)
+    nm = 100 if dtype == torch.float64 else 3
+    before = cs.LAUNCHES
+    got = cs.rollout_in_kernel(pm, q0, p0, nm)
+    assert cs.LAUNCHES == before + 1
+    ref = cs.rollout_reference(pm, q0, p0, nm)
+    atol = (1e-9 if dtype == torch.float64 else 2e-5) * scale
+    for g, r in zip(got, ref):
+        assert torch.equal(torch.isnan(g), torch.isnan(r))
+        assert bool(torch.isfinite(g).all())
+        assert _diff(g[:3], r[:3]) <= atol
+        assert _diff(g, r) <= (atol if dtype == torch.float64 else math.inf)
+    if pm.mod_q is None:  # orbits leave [0, 2 pi) on both sides
+        assert float(got[0].min()) < 0
+    else:
+        # float32 rounds the top of [0, 2 pi) to fl32(2 pi)
+        assert 0 <= float(got[0].min())
+        assert float(got[0].max()) <= float(np.float32(2 * math.pi))

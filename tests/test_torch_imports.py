@@ -80,14 +80,38 @@ def test_standard_map_and_pendulum_modules_import_without_jax():
     assert r.returncode == 0, r.stderr
 
 
+def test_pert_pendulum_henon_and_generic_map_modules_import_without_jax():
+    """The perturbed pendulum's, Henon-Heiles' and the generic map path's
+    modules by name."""
+    code = (
+        "import importlib\n"
+        "for n in ('systems.pert_pendulum', 'systems.henon_heiles',\n"
+        "          'workloads.pert_pendulum', 'workloads.henon_heiles',\n"
+        "          'gp.predict', 'maps.symplectic'):\n"
+        "    importlib.import_module('sympgpr_tpu_torch.' + n)\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in\n"
+        "            ('jax', 'sympgpr_tpu') and sys.modules[m] is not None]\n"
+        "from sympgpr_tpu_torch.eval import metrics\n"
+        "from sympgpr_tpu_torch.gp import predict\n"
+        "from sympgpr_tpu_torch.maps import symplectic\n"
+        "from sympgpr_tpu_torch.systems import tokamak\n"
+        "assert hasattr(metrics, 'henon_energy')\n"
+        "assert hasattr(predict, 'predict_df')\n"
+        "assert hasattr(symplectic, 'calc_P')\n"
+        "assert hasattr(tokamak, 'integrate_fieldlines_rk4')\n")
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+
+
 def test_cli_without_jax():
     r = _run("import runpy; sys.argv = ['sympgpr_tpu_torch', 'list'];"
              "runpy.run_module('sympgpr_tpu_torch', run_name='__main__')")
     assert r.returncode == 0, r.stderr
     assert r.stdout.split() == [
-        "pendulum_explicit", "pendulum_explicit_kernel", "pendulum_implicit",
+        "henon_heiles", "henon_heiles_kernel", "pendulum_explicit", "pendulum_explicit_kernel", "pendulum_implicit",
         "pendulum_implicit_kernel", "pendulum_period_unknown",
-        "pendulum_period_unknown_kernel", "standard_map",
+        "pendulum_period_unknown_kernel", "pert_pendulum",
+        "pert_pendulum_kernel", "standard_map",
         "standard_map_explicit", "standard_map_explicit_kernel",
         "standard_map_kernel", "standard_map_large", "tokamak",
         "tokamak_kernel", "tokamak_large", "tokamak_split",

@@ -131,3 +131,41 @@ def test_reference_orbits_and_save_every():
     with pytest.raises(ValueError):
         ttk.integrate_fieldlines(cfg_t.field, pth0, th0_t, th0_t, 32, 10,
                                  t64(r0), save_every=3)
+
+
+def test_fieldline_rhs_and_rk4_match_jax():
+    """The explicit field-line ODE and the RK4 cross-integrator, 16 field
+    lines over two turns of 32 steps: 1e-12 relative (largest absolute gap
+    observed: 7e-15).  The RK4 and the midpoint integrator agree to their
+    truncation error, as the JAX package's test_systems.py holds."""
+    r, th, ph = _orbit_states(6)
+    field_j, field_t = jtk.TokamakField(), ttk.TokamakField()
+    pth = np.asarray(jtk.Ath(r, th, 0.0))
+    y = np.stack([pth, th], -1)
+    kj, rj = jax.vmap(lambda zz, p, rr: jtk._fieldline_rhs(
+        field_j, zz, p, rr))(jnp.asarray(y), jnp.asarray(ph), jnp.asarray(r))
+    kt, rt = ttk._fieldline_rhs(field_t, t64(y), t64(ph), t64(r))
+    np.testing.assert_allclose(npy(kt), np.asarray(kj), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(npy(rt), np.asarray(rj), rtol=RTOL)
+    zero = np.zeros_like(r)
+    tj = jtk.integrate_fieldlines_rk4(field_j, jnp.asarray(pth),
+                                      jnp.asarray(th), jnp.asarray(zero), 32,
+                                      64, jnp.asarray(r))
+    tt = ttk.integrate_fieldlines_rk4(field_t, t64(pth), t64(th), t64(zero),
+                                      32, 64, t64(r))
+    assert tt.shape == (65, 16, 3) and tt.dtype == torch.float64
+    np.testing.assert_allclose(npy(tt), np.asarray(tj), rtol=RTOL, atol=ATOL)
+    mid = ttk.integrate_fieldlines(field_t, t64(pth), t64(th), t64(zero), 32,
+                                   64, t64(r))
+    assert float((tt - mid).abs().max()) < 1e-2
+
+
+@pytest.mark.parametrize("eps, r", [(0.0, 0.15), (0.001, 0.25)])
+def test_safety_factor_matches_jax(eps, r):
+    """q = dphi/dtheta over 5 turns of the midpoint integrator: 1e-10
+    relative to JAX (observed: equal to the bit)."""
+    qj = jtk.safety_factor(jtk.TokamakField(eps=eps), r, n_turns=5)
+    qt = ttk.safety_factor(ttk.TokamakField(eps=eps), r, n_turns=5,
+                           device=CPU)
+    assert isinstance(qt, float) and 1.0 < qt < 2.0
+    np.testing.assert_allclose(qt, qj, rtol=1e-10)
