@@ -33,7 +33,18 @@ per source, all at once) and drives the main paths on the card:
   wrap of q, and in float64 on the plain fast path);
   ``pert_henon_kernel_vs_plain`` holds the kernel against its plain
   version on both fitted models, times both rollouts, and runs the
-  generic autodiff map path on the card against the fast path.
+  generic autodiff map path on the card against the fast path;
+* the samplers, Adam and Sobol in float64, which launch no kernel of the
+  repo (N = 18-80 is under the covariance kernels' threshold):
+  ``posterior_parity`` (the pendulum N = 18 hyperposterior: a 40^3
+  quadrature through ``nll_batched``, NUTS 4 x 250 and adaptive HMC
+  4 x 600 held to the four gates of tests/test_posterior_parity.py, one
+  transition of each on the card against CPU tensors and its host
+  syncs), ``sample_main`` (the CLI's ``sample``: NUTS on ``tokamak``, HMC
+  on ``pendulum_implicit``, 8 chains, 25 + 25 transitions),
+  ``sobol_main`` (the CLI's ``sobol``: 512 QoI rows x 960 steps) and
+  ``adam_main`` (``fit_batch_adam`` over the Split tokamak's four sets
+  against ``minimize_adam``; ``tokamak_kernel`` with Adam, one rollout).
 
 Each kernel is held against its plain PyTorch version at the main paths'
 shapes, and both are timed with CUDA events around one call (best of 3),
@@ -1955,6 +1966,339 @@ def phase_pert_henon_kernel_vs_plain(dev, models):
     return timing
 
 
+# --- slice E: samplers, Adam, Sobol (float64; no kernel of the repo) --------
+
+# card against CPU tensors for one transition on the pendulum posterior,
+# whose Ky is conditioned near 1e10: (rtol, atol) of the state, of its
+# log-probability and of the accept statistic (the CPU tests measured JAX
+# against the port at 6.1e-10, 8.3e-9 and 3.0e-6 there; an accept
+# probability below 1e-30 is held absolutely)
+TRANSITION_TOL = {"x": (1e-8, 0.0), "lp": (1e-7, 0.0),
+                  "alpha": (1e-5, 1e-12)}
+SOBOL_QOI_RTOL = 1e-10  # the QoI on the card against CPU tensors
+# a batched Adam row against its one-set fit: the Split sets fit at sig2n
+# 1e-14, where the batched NLL (two triangular solves) and the one-row NLL
+# (cholesky_solve) round apart; 300 steps move theta 2.1e-9 apart on the
+# CPU
+ADAM_ROW_RTOL = 1e-8
+
+
+def _counting(logprob, counter: dict):
+    """``logprob`` with its calls (one value and gradient a call in the
+    samplers) counted in ``counter["evals"]``."""
+    def fn(x):
+        counter["evals"] += 1
+        return logprob(x)
+    return fn
+
+
+def _syncs(fn) -> int:
+    """Host syncs the CUDA runtime reports while ``fn()`` runs."""
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            fn()
+            sync()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(x.message) for x in w)
+
+
+def _transition_on(device, logprob, kind: str, draws_seed: int = 5):
+    """One HMC (16 steps) or NUTS (max depth 6) transition of 4 pendulum
+    chains from fixed draws (numpy, seed ``draws_seed``) on ``device``;
+    returns (its outputs in numpy, the host syncs of the transition alone,
+    or None on the CPU)."""
+    from sympgpr_tpu_torch.gp import hmc, nuts
+
+    rng = np.random.default_rng(draws_seed)
+    x0 = np.array([[1.7, 1.2, 2.5], [1.5, 1.0, 1.5], [2.0, 1.4, 3.5],
+                   [1.8, 1.1, 2.0]])
+    eps = np.array([0.002, 0.01, 0.04, 0.1])
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float64), device=device)
+
+    x = t(x0)
+    lp, g = hmc.value_and_grad(logprob, x)
+    if kind == "hmc":
+        args = (logprob, x, lp, g, t(eps), t(rng.standard_normal((4, 3))),
+                t(rng.uniform(size=4)), 16)
+        fn, keys = hmc.hmc_transition, ("x", "lp", "g", "accept", "alpha")
+    else:
+        d = nuts.NUTSDraws(t(rng.standard_normal((4, 3))),
+                           t(2 * rng.integers(0, 2, (4, 6)) - 1),
+                           t(rng.uniform(size=(4, 128))),
+                           t(rng.uniform(size=(4, 6))))
+        args = (logprob, x, lp, g, t(eps), d, 6)
+        fn = nuts.nuts_transition
+        keys = ("x", "lp", "g", "alpha", "depth", "diverging")
+    out, n_syncs = None, None
+    if device.type == "cuda":
+        sync()
+        res = []
+        n_syncs = _syncs(lambda: res.append(fn(*args)))
+        out = res[0]
+    else:
+        out = fn(*args)
+    return {k: v.cpu().numpy() for k, v in zip(keys, out)}, n_syncs
+
+
+def phase_posterior_parity(dev):
+    """The pendulum N = 18 hyperposterior on the card: the 40^3 quadrature
+    through nll_batched, NUTS 4 x 250 and adaptive HMC 4 x 600 held to the
+    four gates of tests/test_posterior_parity.py
+    (``sympgpr_tpu_torch/eval/posterior.py``); one HMC and one NUTS
+    transition from fixed draws on the card against CPU tensors, and the
+    host syncs of each."""
+    from sympgpr_tpu_torch.eval import posterior as post
+    from sympgpr_tpu_torch.gp import hmc, nuts
+
+    _large_counts(zero=True)
+    prob = post.pendulum_problem(dev)
+    res = {"n_train": int(prob["X"].shape[0])}
+    t0 = time.perf_counter()
+    quad = post.quadrature(prob["logprob"], dev)
+    sync()
+    res["quadrature"] = dict(points=len(quad["G"]), s=time.perf_counter() - t0,
+                             edge_mass=quad["edge_mass"],
+                             mean=quad["mean"].tolist(),
+                             std=quad["std"].tolist())
+    samples = {}
+    for name, run, std_rtol in (("nuts", post.run_nuts, post.NUTS_STD_RTOL),
+                                ("hmc", post.run_hmc, post.HMC_STD_RTOL)):
+        counter = {"evals": 0}
+        lp = _counting(prob["logprob"], counter)
+        t0 = time.perf_counter()
+        r = run(lp, dev)
+        sync()
+        wall = time.perf_counter() - t0
+        cfg = post.NUTS_RUN if name == "nuts" else post.HMC_RUN
+        transitions = cfg["n_samples"] + cfg["n_warmup"]
+        s = r.samples.cpu().numpy().reshape(-1, 3)
+        samples[name] = s
+        accept = r.accept_stat if name == "nuts" else r.accept_rate
+        res[name] = dict(
+            s=wall, accept=accept.cpu().numpy().tolist(),
+            evals=counter["evals"],
+            evals_per_transition=counter["evals"] / transitions,
+            ms_per_eval=1e3 * wall / counter["evals"],
+            device=str(r.samples.device),
+            gate=post.moment_check(s, quad, std_rtol))
+        if name == "nuts":
+            res[name].update(mean_depth=r.mean_depth.cpu().numpy().tolist(),
+                             divergences=int(r.n_divergent.sum()))
+    res["bands"] = post.bands_check(prob, samples["nuts"], quad)
+    res["coverage"] = post.coverage_check(prob)
+
+    def logprob_of(device, counter=None):
+        lp = hmc.nll_logprob(post.PER_SE, prob["X"].to(device),
+                             prob["z"].to(device), post.SIG2N)
+        return lp if counter is None else _counting(lp, counter)
+
+    trans = {}
+    for kind in ("hmc", "nuts"):
+        counter = {"evals": 0}
+        gpu, n_syncs = _transition_on(dev, logprob_of(dev, counter), kind)
+        cpu, _ = _transition_on(torch.device("cpu"),
+                                logprob_of(torch.device("cpu")), kind)
+        rel = {k: float(np.max(np.abs(gpu[k] - cpu[k])
+                               / np.maximum(np.abs(cpu[k]), 1e-300)))
+               for k in TRANSITION_TOL}
+        excess = {k: float(np.max(np.abs(gpu[k] - cpu[k]) - rtol
+                                  * np.abs(cpu[k]) - atol))
+                  for k, (rtol, atol) in TRANSITION_TOL.items()}
+        exact = [k for k in gpu if k not in ("x", "lp", "g", "alpha")]
+        # the evaluations of the transition: all but the start point's
+        trans[kind] = dict(rel_err=rel, excess_over_tol=excess,
+                           exact_equal={
+            k: bool(np.array_equal(gpu[k], cpu[k])) for k in exact},
+            syncs=n_syncs, evals=counter["evals"] - 1,
+            depth=gpu["depth"].tolist() if kind == "nuts" else None)
+    res["transition_gpu_vs_cpu"] = trans
+    res["kernel_launches"] = _large_counts()
+    emit("posterior_parity", **res)
+    assert res["quadrature"]["edge_mass"] < 1e-3, res["quadrature"]
+    assert min(res["nuts"]["accept"]) > post.NUTS_MIN_ACCEPT, res["nuts"]
+    assert min(res["hmc"]["accept"]) > post.HMC_MIN_ACCEPT, res["hmc"]
+    for name in ("nuts", "hmc"):
+        assert res[name]["gate"]["ok"], (name, res[name])
+        assert res[name]["device"].startswith("cuda"), res[name]
+    assert res["bands"]["ok"] and res["coverage"]["ok"], res
+    for kind, tr in trans.items():
+        assert all(tr["exact_equal"].values()), (kind, tr)
+        assert max(tr["excess_over_tol"].values()) <= 0.0, (kind, tr)
+        # the known host reads: one a log-probability call (the NLL's
+        # failed rows), and for NUTS one a leapfrog step of its inner loop
+        # and one a doubling (its outer loop, at most max_depth + 1)
+        known = tr["evals"] + (tr["evals"] + 7 if kind == "nuts" else 0)
+        assert tr["syncs"] <= known, (kind, tr)
+    assert not any(res["kernel_launches"].values()), res["kernel_launches"]
+
+
+# transitions of sample_main (the CLI's defaults are 200 + 200): cut to an
+# eighth to keep the smoke within half its time limit, the sampler being
+# bound by eager dispatch on the host (4.5-8.3 ms an evaluation on an H100)
+SAMPLE_MAIN_CUT = ["--samples", "25", "--warmup", "25"]
+
+
+def phase_sample_main(dev):
+    """The CLI's ``sample`` at its defaults but for SAMPLE_MAIN_CUT (8
+    chains, 25 + 25): NUTS on tokamak (N = 80, K 160 x 160), adaptive HMC
+    on pendulum_implicit."""
+    from sympgpr_tpu_torch import __main__ as cli
+    from sympgpr_tpu_torch.gp import hmc
+
+    res = {}
+    nll_logprob = hmc.nll_logprob
+    for workload, sampler in (("tokamak", "nuts"),
+                              ("pendulum_implicit", "hmc")):
+        counter = {"evals": 0}
+        hmc.nll_logprob = lambda *a, **k: _counting(nll_logprob(*a, **k),
+                                                    counter)
+        _large_counts(zero=True)
+        args = cli.build_parser().parse_args(
+            ["sample", workload, "--sampler", sampler, "--device", str(dev)]
+            + SAMPLE_MAIN_CUT)
+        t0 = time.perf_counter()
+        try:
+            out, r = cli.cmd_sample(args)
+            sync()
+        finally:
+            hmc.nll_logprob = nll_logprob
+        wall = time.perf_counter() - t0
+        res[workload] = dict(
+            cli=out, s=wall, evals=counter["evals"],
+            ms_per_eval=1e3 * wall / counter["evals"],
+            log_probs_finite=bool(torch.isfinite(r.log_probs).all()),
+            device=str(r.samples.device), kernel_launches=_large_counts())
+    emit("sample_main", **res)
+    for workload, r in res.items():
+        assert r["log_probs_finite"], (workload, r)
+        assert r["cli"]["accept_rate"] > 0.5, (workload, r)
+        assert r["device"].startswith("cuda"), (workload, r)
+        assert not any(r["kernel_launches"].values()), (workload, r)
+
+
+def phase_sobol_main(dev):
+    """The CLI's ``sobol`` at its defaults (n = 128, 30 turns: 512 QoI rows
+    x 960 steps) on the card; the QoI on the card against CPU tensors at
+    n = 8, 2 turns."""
+    from sympgpr_tpu_torch import __main__ as cli
+    from sympgpr_tpu_torch import sensitivity as sens
+
+    _large_counts(zero=True)
+    args = cli.build_parser().parse_args(["sobol", "--device", str(dev)])
+    t0 = time.perf_counter()
+    out = cli.cmd_sobol(args)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = _large_counts()
+    design = sens.saltelli_sample(8, [(0.0, 0.004), (0.0, 2 * np.pi)])
+    qoi = sens.tokamak_chaos_qoi(n_turns=2)
+    t0 = time.perf_counter()
+    on_card = qoi(torch.as_tensor(design, device=dev)).cpu().numpy()
+    t_small = time.perf_counter() - t0
+    on_cpu = qoi(torch.as_tensor(design)).numpy()
+    rel = float(np.max(np.abs(on_card - on_cpu) / np.abs(on_cpu)))
+    # kernels a step, by the profiler over 4 steps of 2 rows
+    kernels = _device_kernels(lambda: sens.tokamak_chaos_qoi(
+        n_turns=1, nph=4)(torch.as_tensor(design[:2], device=dev)))
+    emit("sobol_main", cli=out, s=wall, rows=len(sens.saltelli_sample(
+        args.n, [(0, 1), (0, 1)])), steps=32 * args.turns,
+        qoi_card_vs_cpu_rel=rel, small_s=t_small,
+        kernels_per_step=None if kernels is None else kernels / 4,
+        kernel_launches=launches)
+    vals = np.asarray(out["S1"] + out["ST"])
+    assert np.all(np.isfinite(vals)), out
+    assert np.all((vals >= -0.1) & (vals <= 1.1)), out
+    assert rel <= SOBOL_QOI_RTOL, rel
+    assert not any(launches.values()), launches
+
+
+def phase_adam_main(dev, split_sets, lbfgs_models):
+    """fit_batch_adam over the Split tokamak's four sub-map training sets
+    (N = 70 each, 300 steps, the sympl fit's linear transform from (0.5,
+    0.5, 10)), each row against minimize_adam on its set; then
+    ``run tokamak_kernel --optimizer adam`` (one rollout launch), its NLL
+    beside L-BFGS's of the main path."""
+    from sympgpr_tpu_torch.gp import likelihood
+    from sympgpr_tpu_torch.gp import train
+    from sympgpr_tpu_torch.kernels import PER_SE
+    from sympgpr_tpu_torch.systems import tokamak as tk
+    from sympgpr_tpu_torch.workloads import tokamak as wl
+
+    Xs, zs, sig2n = split_sets
+    kw = dict(transform="linear", steps=300)
+    x0 = (0.5, 0.5, 10.0)
+    _large_counts(zero=True)
+    t0 = time.perf_counter()
+    thetas, nlls = train.fit_batch_adam(PER_SE, Xs, zs, sig2n=sig2n, x0=x0,
+                                        **kw)
+    sync()
+    t_batch = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = []
+    for m in range(Xs.shape[0]):
+        obj = train.make_objective(likelihood.nll, PER_SE, Xs[m], zs[m],
+                                   sig2n, transform="linear")
+        rows.append(train.minimize_adam(obj, x0, steps=300, device=dev))
+    t_rows = time.perf_counter() - t0
+    th = thetas.cpu().numpy()
+    rel = max(float(np.max(np.abs(th[m] - r.theta) / np.abs(r.theta)))
+              for m, r in enumerate(rows))
+    rel_nll = max(abs(float(nlls[m]) - r.fun) / abs(r.fun)
+                  for m, r in enumerate(rows))
+    batch_launches = _large_counts()
+
+    cfg = tk.TokamakConfig()
+    from sympgpr_tpu_torch.ops import cuda_step
+
+    cuda_step.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = wl.run(cfg, optimizer="adam", backend="kernel",
+                 with_reference=False, device=dev)
+    sync()
+    t_run = time.perf_counter() - t0
+    launches = cuda_step.LAUNCHES
+    (r0, th0), _ = tk.test_initial_conditions(cfg)
+    out.update(wl.one_turn_gd(cfg, out["traj"], r0, th0, dev))
+
+    def nll_of(sgp):
+        with torch.no_grad():
+            return float(likelihood.nll(PER_SE, sgp.params, sgp.sig,
+                                        torch.as_tensor(cfg.sig2_n,
+                                                        device=dev),
+                                        sgp.X, sgp.z))
+
+    sgp = out["models"][0][0]
+    res = dict(
+        batch=dict(sets=int(Xs.shape[0]), n_train=int(Xs.shape[1]),
+                   steps=300, s=t_batch, rows_s=t_rows,
+                   max_rel_theta_vs_rows=rel, max_rel_nll_vs_rows=rel_nll,
+                   thetas=th.tolist(), nlls=nlls.cpu().numpy().tolist(),
+                   kernel_launches=batch_launches),
+        tokamak_kernel_adam=dict(
+            training_error=out["training_error"],
+            median_gd=float(np.nanmedian(out["gd"])),
+            mean_gd=float(np.nanmean(out["gd"])), n_lost=out["n_lost"],
+            nll=nll_of(sgp), nll_lbfgs=nll_of(lbfgs_models[0][0]),
+            hyps=out["hyps"][0].tolist(), sig=out["sigs"][0],
+            t_train=out["t_train"], t_apply=out["t_apply"], s=t_run,
+            launches=launches))
+    emit("adam_main", **res)
+    assert rel <= ADAM_ROW_RTOL and rel_nll <= ADAM_ROW_RTOL, res["batch"]
+    assert np.all(np.isfinite(th)), res["batch"]
+    assert not any(batch_launches.values()), batch_launches
+    r = res["tokamak_kernel_adam"]
+    assert launches == 1, r
+    assert np.isfinite(r["nll"]) and np.isfinite(r["training_error"]), r
+    return launches
+
+
 def main() -> None:
     dev, smi = phase_device()
     # the plain versions are the yardstick: full float32 matrix products
@@ -1967,6 +2311,9 @@ def main() -> None:
     split, split_launches = phase_split_main(dev)
     phase_split_generic(dev, split["models"])
     phase_split_kernel_vs_plain(dev, split["models"])
+    split_sets = (torch.stack([s.X for s in split["models"][0]]),
+                  torch.stack([s.z for s in split["models"][0]]),
+                  _split_cfg().sig2_n)
     del split
     large_models, large_launches = phase_large_main(dev)
     large = phase_large_kernels_vs_plain(dev, large_models[0])
@@ -1979,12 +2326,16 @@ def main() -> None:
     phase_modes_kernel_vs_plain(dev, stdmap, pendulum, sm_large)
     pert_henon, pert_henon_launches = phase_pert_henon_main(dev)
     phase_pert_henon_kernel_vs_plain(dev, pert_henon)
+    phase_posterior_parity(dev)
+    phase_sample_main(dev)
+    phase_sobol_main(dev)
+    adam_launches = phase_adam_main(dev, split_sets, out["models"])
     b = rollout_bound(30, NM, pm32.ns, pm32.nas, 4)
     rows = [{"name": "rollout_step", "route": "cuda", "source": KERNEL_SOURCE,
              "replaces": REPLACES,
              "launches": launches + split_launches + stdmap_launches
              + pendulum_launches + sm_large_launches["rollout"]
-             + pert_henon_launches,
+             + pert_henon_launches + adam_launches,
              "max_abs_err": err32, "ms": ms, "plain_ms": plain_ms,
              "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
              "library_ms": None}]

@@ -7,7 +7,8 @@ model-artifact format with it.  Learn the generating function of a
 symplectic map from derivative observations with a GP, then iterate the
 learned map for long-time Hamiltonian dynamics (the tokamak field lines,
 one map or Split, and at large N; the pendulum, the perturbed pendulum,
-the standard map and Henon-Heiles).
+the standard map and Henon-Heiles); sample the hyperparameter posterior
+with HMC or NUTS and compute Sobol indices of the tokamak's chaos.
 """
 
 from sympgpr_tpu_torch.kernels import (
@@ -19,7 +20,7 @@ from sympgpr_tpu_torch.kernels import (
     get_kernel,
 )
 from sympgpr_tpu_torch.gp.covariance import build_K, build_Kreg
-from sympgpr_tpu_torch.gp.likelihood import nll, nll_reg
+from sympgpr_tpu_torch.gp.likelihood import nll, nll_batched, nll_reg
 from sympgpr_tpu_torch.gp.model import (
     AuxGP,
     SympGP,
@@ -27,7 +28,15 @@ from sympgpr_tpu_torch.gp.model import (
     models_from_arrays,
     save_models,
 )
-from sympgpr_tpu_torch.gp.train import fit_auxgp, fit_sympgp, minimize_lbfgs
+from sympgpr_tpu_torch.gp.train import (
+    fit_auxgp,
+    fit_batch_adam,
+    fit_sympgp,
+    minimize_adam,
+    minimize_lbfgs,
+)
+from sympgpr_tpu_torch.gp.hmc import sample_hmc
+from sympgpr_tpu_torch.gp.nuts import sample_nuts
 from sympgpr_tpu_torch.maps.symplectic import (
     MapConfig,
     Trajectory,

@@ -11,9 +11,16 @@
   python -m sympgpr_tpu_torch run pendulum_explicit_kernel --device cuda
   python -m sympgpr_tpu_torch run pert_pendulum_kernel --device cuda
   python -m sympgpr_tpu_torch run henon_heiles_kernel --device cuda
+  python -m sympgpr_tpu_torch run tokamak_kernel --optimizer adam --device cuda
+  python -m sympgpr_tpu_torch sample tokamak --sampler nuts --device cuda
+  python -m sympgpr_tpu_torch sample pendulum_implicit --sampler hmc --device cuda
+  python -m sympgpr_tpu_torch sobol --n 128 --turns 30 --device cuda
 
 Each workload without ``_kernel`` rolls out on the float64 fast path; with
-it, through the fused rollout in float32.
+it, through the fused rollout in float32.  ``sample`` draws a workload's
+GP hyperposterior (log10 hyperparameters, sig last) with NUTS or adaptive
+HMC, all chains batched in float64; ``sobol`` computes the tokamak's Sobol
+indices over (eps, phase).  Both print the JSON keys of the JAX CLI.
 
 ``--device`` defaults to ``cuda`` and fails when no GPU is present; pass
 ``--device cpu`` to run on the CPU.
@@ -152,7 +159,112 @@ def cmd_list(args):
         print(name)
 
 
-def main(argv=None):
+def cmd_sobol(args) -> dict:
+    from sympgpr_tpu_torch import sensitivity
+
+    device = _device(args.device)
+    qoi = sensitivity.tokamak_chaos_qoi(n_turns=args.turns)
+    S1, ST, var = sensitivity.sobol_indices(
+        qoi, bounds=[(0.0, 0.004), (0.0, 2 * np.pi)], n=args.n,
+        device=device)
+    out = {"params": ["eps", "phase"], "S1": S1.tolist(), "ST": ST.tolist(),
+           "var": float(var)}
+    print(json.dumps(out))
+    return out
+
+
+SAMPLE_PROBLEMS = ("pendulum_implicit", "pendulum_period_unknown",
+                   "standard_map", "tokamak")
+
+
+def _sample_problem(name: str, device):
+    """(kernel, X, z, sig2n, x0_theta) of the NLL posterior of a workload's
+    symplectic GP (log10 hyperparameters, sig last), the JAX CLI's
+    configurations."""
+    import torch
+
+    from sympgpr_tpu_torch.kernels import PER_SE, PER_SE_FREQ
+
+    if name in ("pendulum_implicit", "pendulum_period_unknown"):
+        from sympgpr_tpu_torch.systems import pendulum as sys_pend
+
+        cfg = (sys_pend.PendulumConfig() if name == "pendulum_implicit"
+               else sys_pend.PendulumConfig(N=50, Nm=100, sig2_n=1e-10))
+        data = sys_pend.training_data(cfg, device)
+        if name == "pendulum_implicit":
+            return PER_SE, data["X"], data["z"], cfg.sig2_n, [0.0, 0.0, 0.5]
+        return (PER_SE_FREQ, data["X"], data["z"], cfg.sig2_n,
+                [0.0, 0.0, -0.3, 0.5])
+    if name == "standard_map":
+        from sympgpr_tpu_torch.systems import standard_map as sys_map
+
+        cfg = sys_map.StandardMapConfig()
+        data = sys_map.training_data(cfg, device)
+        return PER_SE, data["X"], data["z"], cfg.sig2_n, [0.0, -0.5, 0.5]
+    if name == "tokamak":
+        from sympgpr_tpu_torch.systems import tokamak as tk
+
+        cfg = tk.TokamakConfig()
+        data = tk.training_data(cfg, device)
+        q, p = data["q"][:, 0], data["p"][:, 0]
+        Q, P = data["Q"][:, 0], data["P"][:, 0]
+        return (PER_SE, torch.stack([q, P], 1), torch.cat([p - P, Q - q]),
+                cfg.sig2_n, [-0.3, -0.3, 1.0])
+    sys.exit(f"no sampling posterior registered for {name!r}; "
+             f"available: {', '.join(SAMPLE_PROBLEMS)}")
+
+
+def cmd_sample(args):
+    """NUTS or adaptive HMC over a workload's GP hyperparameter posterior,
+    all chains batched on ``--device``; returns (the printed dict, the
+    sampler's result)."""
+    import torch
+
+    from sympgpr_tpu_torch.gp import hmc, nuts
+
+    device = _device(args.device)
+    kern, X, z, sig2n, x0 = _sample_problem(args.workload, device)
+    logprob = hmc.nll_logprob(kern, X, z, sig2n)
+    x0s = torch.as_tensor(hmc.start_points(x0, args.chains, args.seed),
+                          dtype=torch.float64, device=device)
+    common = dict(n_warmup=args.warmup, seed=args.seed,
+                  step_size=args.step_size)
+    if args.sampler == "nuts":
+        res = nuts.sample_nuts(logprob, x0s, args.samples, **common)
+        accept = res.accept_stat
+        extra = {"mean_depth": float(res.mean_depth.mean()),
+                 "divergences": int(res.n_divergent.sum())}
+    else:
+        res = hmc.sample_hmc(logprob, x0s, args.samples,
+                             n_leapfrog=args.leapfrog, adapt_step_size=True,
+                             **common)
+        accept = res.accept_rate
+        extra = {}
+
+    samples = res.samples.cpu().numpy()  # (chains, n, dim) log10 theta
+    flat = samples.reshape(-1, samples.shape[-1])
+    hyp_names = [f"l{i}" for i in range(samples.shape[-1] - 1)] + ["sig"]
+    out = {
+        "workload": args.workload,
+        "sampler": args.sampler,
+        "chains": int(samples.shape[0]),
+        "samples_per_chain": int(samples.shape[1]),
+        "accept_rate": float(accept.mean()),
+        "theta_mean": dict(zip(hyp_names, flat.mean(0).round(4).tolist())),
+        "theta_std": dict(zip(hyp_names, flat.std(0).round(4).tolist())),
+        "hyp_posterior_mean": dict(
+            zip(hyp_names, (10.0 ** flat).mean(0).round(5).tolist())),
+        **extra,
+    }
+    print(json.dumps(out))
+    if args.save:
+        np.savez(args.save, samples=samples,
+                 log_probs=res.log_probs.cpu().numpy())
+        print(f"wrote {args.save}", file=sys.stderr)
+    return out, res
+
+
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="sympgpr_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -160,8 +272,10 @@ def main(argv=None):
     p_run.add_argument("workload")
     p_run.add_argument("--nm", type=int, default=None,
                        help="number of map applications")
-    p_run.add_argument("--optimizer", default=None, choices=("lbfgs", "cmaes"),
-                       help="hyperparameter optimizer")
+    p_run.add_argument("--optimizer", default=None,
+                       choices=("lbfgs", "cmaes", "adam"),
+                       help="hyperparameter optimizer of the tokamak "
+                            "workloads")
     p_run.add_argument("--n", type=int, default=None,
                        help="training-set size (tokamak_large, "
                             "standard_map_large)")
@@ -183,7 +297,34 @@ def main(argv=None):
     p_list = sub.add_parser("list", help="list workloads")
     p_list.set_defaults(fn=cmd_list)
 
-    args = ap.parse_args(argv)
+    p_sobol = sub.add_parser("sobol", help="tokamak Sobol sensitivity")
+    p_sobol.add_argument("--n", type=int, default=128)
+    p_sobol.add_argument("--turns", type=int, default=30)
+    p_sobol.add_argument("--device", default="cuda",
+                         help="torch device (default cuda)")
+    p_sobol.set_defaults(fn=cmd_sobol)
+
+    p_sample = sub.add_parser(
+        "sample", help="HMC/NUTS over a workload's GP hyperposterior")
+    p_sample.add_argument("workload")
+    p_sample.add_argument("--sampler", default="nuts",
+                          choices=("nuts", "hmc"))
+    p_sample.add_argument("--chains", type=int, default=8)
+    p_sample.add_argument("--samples", type=int, default=200)
+    p_sample.add_argument("--warmup", type=int, default=200)
+    p_sample.add_argument("--step-size", type=float, default=0.05)
+    p_sample.add_argument("--leapfrog", type=int, default=16)
+    p_sample.add_argument("--seed", type=int, default=0)
+    p_sample.add_argument("--save", default=None,
+                          help="write samples to this .npz")
+    p_sample.add_argument("--device", default="cuda",
+                          help="torch device (default cuda)")
+    p_sample.set_defaults(fn=cmd_sample)
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
     args.fn(args)
 
 

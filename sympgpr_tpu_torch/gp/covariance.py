@@ -52,15 +52,17 @@ def build_K_fast(kernel: Kernel, X: Tensor, X0: Tensor, params: Tensor,
 
     All four blocks come from the shared factors of
     ``maps.fast_apply._q_factors``; kernels outside the product family use
-    ``build_K``.
+    ``build_K``.  Leading batch dims broadcast: X (..., N, 2), X0
+    (..., N0, 2), each of ``params[i]`` and sig of shape (..., 1, 1) give
+    (..., 2N, 2N0) (``likelihood.nll_batched``).
     """
     if kernel.name not in _FAST_COV:
         return build_K(kernel, X, X0, params, sig)
     from sympgpr_tpu_torch.maps.fast_apply import _q_factors
 
     ly = params[1]
-    dq = X[:, None, 0] - X0[None, :, 0]
-    dP = X[:, None, 1] - X0[None, :, 1]
+    dq = X[..., :, None, 0] - X0[..., None, :, 0]
+    dP = X[..., :, None, 1] - X0[..., None, :, 1]
     A, sp, spp = _q_factors(kernel.name, dq, params)
     B = torch.exp(-(dP**2) / (2.0 * ly**2))
     ily2 = 1.0 / ly**2
@@ -68,6 +70,6 @@ def build_K_fast(kernel: Kernel, X: Tensor, X0: Tensor, params: Tensor,
     dxdx = (spp - sp**2) * AB
     dydy = (ily2 - dP**2 * ily2**2) * AB
     dxdy = -sp * dP * ily2 * AB
-    return sig * torch.cat([torch.cat([dxdx, dxdy], 1),
-                            torch.cat([dxdy, dydy], 1)], 0)
+    return sig * torch.cat([torch.cat([dxdx, dxdy], -1),
+                            torch.cat([dxdy, dydy], -1)], -2)
 

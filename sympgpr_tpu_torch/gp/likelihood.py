@@ -22,12 +22,29 @@ import math
 import numpy as np
 import torch
 
-from sympgpr_tpu_torch.gp.covariance import build_K, build_K_fast, build_Kreg
+from sympgpr_tpu_torch.gp.covariance import (
+    _FAST_COV,
+    build_K,
+    build_K_fast,
+    build_Kreg,
+)
 from sympgpr_tpu_torch.kernels.variants import Kernel
 from sympgpr_tpu_torch.linalg.triangular import spd_inverse_from_chol
 from sympgpr_tpu_torch.ops import cuda_cov
 
 Tensor = torch.Tensor
+
+
+def _eig_nll(Ky: Tensor, z: Tensor) -> Tensor:
+    """The NLL through eigh with the spectrum floored, so value and
+    gradient stay finite; over any leading batch."""
+    w, Q = torch.linalg.eigh(Ky)
+    floor = torch.clamp(torch.amax(torch.abs(w), -1, keepdim=True) * 1e-14,
+                        min=1e-300)
+    w = torch.maximum(w, floor)
+    Qz = (Q.mT @ z[..., None])[..., 0]
+    alpha = (Q @ (Qz / w)[..., None])[..., 0]
+    return 0.5 * (z * alpha).sum(-1) + 0.5 * torch.log(w).sum(-1)
 
 
 def _nll_from_Ky(Ky: Tensor, z: Tensor) -> Tensor:
@@ -40,11 +57,7 @@ def _nll_from_Ky(Ky: Tensor, z: Tensor) -> Tensor:
     if int(info) == 0 and bool(torch.isfinite(L).all()):
         alpha = torch.cholesky_solve(z[:, None], L)[:, 0]
         return 0.5 * z @ alpha + torch.sum(torch.log(torch.diagonal(L)))
-    w, Q = torch.linalg.eigh(Ky)
-    floor = torch.clamp(torch.max(torch.abs(w)) * 1e-14, min=1e-300)
-    w = torch.maximum(w, floor)
-    alpha = Q @ ((Q.T @ z) / w)
-    return 0.5 * z @ alpha + 0.5 * torch.sum(torch.log(w))
+    return _eig_nll(Ky, z)
 
 
 def _eye(n: int, like: Tensor) -> Tensor:
@@ -68,6 +81,77 @@ def nll_reg(kernel: Kernel, params: Tensor, sig: Tensor, sig2n: Tensor,
     K = build_Kreg(kernel, X, X, params, sig)
     Ky = K + torch.abs(sig2n) * _eye(K.shape[0], K)
     return _nll_from_Ky(Ky, z)
+
+
+class _Poison(torch.autograd.Function):
+    """Per row of a (B, n, n) stack: NaN where ``nan_value`` and 0
+    elsewhere, with a NaN gradient on the rows where ``nan_grad`` and 0
+    elsewhere.  Added to a batch of NLLs, it gives a failed row JAX's NaN
+    pattern (a failed Cholesky's VJP is NaN under ``vmap``) with no host
+    read and no NaN leaking into the other rows."""
+
+    @staticmethod
+    def forward(ctx, A, nan_value, nan_grad):
+        ctx.save_for_backward(nan_grad)
+        ctx.shape = A.shape
+        return torch.where(nan_value, math.nan, 0.0).to(A.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (nan_grad,) = ctx.saved_tensors
+        row = torch.where(nan_grad, math.nan, 0.0).to(g.dtype)
+        return row[:, None, None].expand(ctx.shape), None, None
+
+
+def nll_batched(kernel: Kernel, params: Tensor, sig: Tensor, sig2n,
+                X: Tensor, z: Tensor, reg: bool = False) -> Tensor:
+    """NLL over a leading batch of B hyperparameter rows: the counterpart
+    of ``jax.vmap(nll)`` (``reg=True``: of ``jax.vmap(nll_reg)``).
+
+    params: (B, d); sig: (B,); X: (N, 2) shared or (B, N, 2) one set a
+    row; z: (2N,) or (B, 2N) ((N,) or (B, N) with ``reg``).  Returns (B,).
+
+    The product kernels' covariances are built by broadcasting
+    ``build_K_fast`` over the batch, the others under ``torch.func.vmap``;
+    they are factored by one batched ``cholesky_ex``; alpha comes from two batched triangular
+    solves.  A row whose Ky is not finite is NaN in value and gradient; a
+    row whose factorization fails takes the floored-eigh value of
+    ``_nll_from_Ky`` and a NaN gradient, the pattern of JAX's
+    ``jax.vmap(jax.value_and_grad(nll))``.  The failed rows are read to
+    the host once per call (the only host read on the path); eigh runs on
+    them alone (and reads its own status back, on that rare path only).
+    """
+    if not reg and kernel.name in _FAST_COV:
+        K = build_K_fast(kernel, X, X, params.T[..., None, None],
+                         sig[:, None, None])
+    else:
+        build = build_Kreg if reg else build_K_fast
+        K = torch.func.vmap(
+            lambda p, s, x: build(kernel, x, x, p, s),
+            in_dims=(0, 0, 0 if X.dim() == 3 else None))(params, sig, X)
+    n = K.shape[-1]
+    # a Python float stays a kernel argument: no copy to the card
+    s2n = torch.abs(sig2n) if isinstance(sig2n, Tensor) else abs(sig2n)
+    Ky = K + s2n * _eye(n, K)
+    z = z.expand(K.shape[0], n)
+    finite = torch.isfinite(Ky).flatten(1).all(-1)
+    L, info = torch.linalg.cholesky_ex(Ky)
+    failed = (info != 0) | ~torch.isfinite(L).flatten(1).all(-1)
+    y = torch.linalg.solve_triangular(L, z[..., None], upper=False)
+    alpha = torch.linalg.solve_triangular(L.mT, y, upper=True)[..., 0]
+    val = (0.5 * (z * alpha).sum(-1)
+           + torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1))
+    flags = torch.stack([failed, finite]).cpu()  # the one host read
+    if not bool(flags[0].any()):
+        return val
+    rows = flags[0] & flags[1]
+    if bool(rows.any()):
+        idx = rows.nonzero()[:, 0]
+        if Ky.is_cuda:
+            idx = idx.pin_memory().to(Ky.device, non_blocking=True)
+        val = val.index_put((idx,), _eig_nll(Ky.index_select(0, idx),
+                                             z.index_select(0, idx)))
+    return val + _Poison.apply(Ky, ~finite, failed)
 
 
 def nll_separable(kernel: Kernel, params: Tensor, sig: Tensor,

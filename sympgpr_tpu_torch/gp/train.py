@@ -1,5 +1,5 @@
-"""Hyperparameter inference (PyTorch port of the L-BFGS and CMA-ES parts
-and the large-N on-device fit of ``sympgpr_tpu/gp/train.py``).
+"""Hyperparameter inference (PyTorch port of ``sympgpr_tpu/gp/train.py``:
+L-BFGS, CMA-ES, Adam, the batched Adam fits and the large-N on-device fit).
 
 scipy L-BFGS-B runs on the host over a torch value-and-grad of the NLL;
 CMA-ES runs its strategy on the host in numpy and evaluates each
@@ -7,8 +7,10 @@ generation's members one after another on the data's device.  The linear
 algebra runs on the device the training data lives on.  The
 hyperparameter transforms are the reference's two styles: ``log10``
 (``hyp = 10**theta``) and ``linear`` (``hyp = |theta|``).
-``fit_sympgp_ondevice`` is an Adam loop over the closed-form NLL gradient
-that stays on the device until its last step.
+``minimize_adam``, ``fit_batch_adam`` (M datasets at once over
+``likelihood.nll_batched``) and ``fit_sympgp_ondevice`` (an Adam loop over
+the closed-form NLL gradient) share one update, ``adam_update``, and stay
+on the device until their last step.
 """
 
 from __future__ import annotations
@@ -224,9 +226,49 @@ def minimize_cmaes(
                      nfev=total_fev, message="cma-es")
 
 
+B1, B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
+
+
+def adam_update(theta: Tensor, g: Tensor, mu: Tensor, nu: Tensor, i: int,
+                lr: float):
+    """One Adam step at iteration i = 0, 1, ..., with optax's formula and a
+    zero gradient where it is not finite; returns (theta, mu, nu).  Pure
+    tensor arithmetic: no host read."""
+    g = torch.where(torch.isfinite(g), g, 0.0)
+    mu = (1 - B1) * g + B1 * mu
+    nu = (1 - B2) * g**2 + B2 * nu
+    mu_hat = mu / (1 - B1 ** (i + 1))
+    nu_hat = nu / (1 - B2 ** (i + 1))
+    return theta + -lr * (mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS)), mu, nu
+
+
+def minimize_adam(
+    objective: Callable[[Tensor], Tensor],
+    x0: Sequence[float],
+    lr: float = 3e-2,
+    steps: int = 300,
+    *,
+    device: torch.device | str,
+    dtype: torch.dtype = torch.float64,
+) -> FitResult:
+    """``steps`` Adam iterations on ``device``; ``fun`` is the objective at
+    the final theta, the one value read back."""
+    theta = torch.as_tensor(np.asarray(x0, np.float64), dtype=dtype,
+                            device=device)
+    mu, nu = torch.zeros_like(theta), torch.zeros_like(theta)
+    for i in range(steps):
+        _, g = value_and_grad(objective, theta)
+        theta, mu, nu = adam_update(theta, g, mu, nu, i, lr)
+    with torch.no_grad():
+        final = float(objective(theta))
+    return FitResult(theta=theta.cpu().numpy(), fun=final,
+                     success=bool(np.isfinite(final)), nfev=steps)
+
+
 _MINIMIZERS = {
     "lbfgs": minimize_lbfgs,
     "cmaes": minimize_cmaes,
+    "adam": minimize_adam,
 }
 
 
@@ -350,23 +392,16 @@ def fit_sympgp_separable(
 
 def _adam(kernel: Kernel, X: Tensor, z: Tensor, theta: Tensor,
           sig2n: Tensor, steps: int, lr: float):
-    """``steps`` Adam iterations over ``nll_value_and_grad_theta``, with
-    optax's formula (b1 0.9, b2 0.999, eps 1e-8) and a zero gradient where
-    it is not finite.  Nothing leaves the device: returns (theta, NLL
-    history) as tensors."""
-    b1, b2, eps = 0.9, 0.999, 1e-8
+    """``steps`` Adam iterations (``adam_update``) over
+    ``nll_value_and_grad_theta``.  Nothing leaves the device: returns
+    (theta, NLL history) as tensors."""
     mu = torch.zeros_like(theta)
     nu = torch.zeros_like(theta)
     hist = torch.empty(steps, dtype=theta.dtype, device=theta.device)
     for i in range(steps):
         val, g = likelihood.nll_value_and_grad_theta(kernel, theta, sig2n, X,
                                                      z)
-        g = torch.where(torch.isfinite(g), g, 0.0)
-        mu = (1 - b1) * g + b1 * mu
-        nu = (1 - b2) * g**2 + b2 * nu
-        mu_hat = mu / (1 - b1 ** (i + 1))
-        nu_hat = nu / (1 - b2 ** (i + 1))
-        theta = theta + -lr * (mu_hat / (torch.sqrt(nu_hat) + eps))
+        theta, mu, nu = adam_update(theta, g, mu, nu, i, lr)
         hist[i] = val
     return theta, hist
 
@@ -432,3 +467,41 @@ def fit_sympgp_ondevice(
     timings = {"fit_s": fit_s, "fit_escalation_s": t_failed,
                "sig2n_used": float(sig2n), "jitter_escalations": escalations}
     return model, hist, train_mse, timings
+
+
+def fit_batch_adam(
+    kernel: Kernel,
+    Xs: Tensor,
+    zs: Tensor,
+    *,
+    sig2n: float,
+    x0: Sequence[float],
+    transform: str = "log10",
+    lr: float = 3e-2,
+    steps: int = 300,
+    reg: bool = False,
+) -> tuple[Tensor, Tensor]:
+    """Fit M GPs at once: Adam over ``likelihood.nll_batched`` of stacked
+    datasets, the counterpart of the JAX package's vmapped fits.
+
+    Xs: (M, N, 2) training sets; zs: (M, 2N) ((M, N) with ``reg``, the
+    auxiliary GP's NLL).  Every set starts from x0 (the last component is
+    the signal variance).  Returns (thetas (M, d), nlls (M,)) on the data's
+    device; the loop reads nothing back but the NLL's failed rows.
+    """
+    theta = torch.as_tensor(np.asarray(x0, np.float64), dtype=Xs.dtype,
+                            device=Xs.device).expand(Xs.shape[0], -1)
+
+    def loss(theta: Tensor) -> Tensor:
+        hyp = _apply_transform(theta, transform)
+        return likelihood.nll_batched(kernel, hyp[:, :-1], hyp[:, -1], sig2n,
+                                      Xs, zs, reg=reg)
+
+    mu, nu = torch.zeros_like(theta), torch.zeros_like(theta)
+    for i in range(steps):
+        with torch.enable_grad():
+            th = theta.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(loss(th).sum(), th)
+        theta, mu, nu = adam_update(theta, g, mu, nu, i, lr)
+    with torch.no_grad():
+        return theta, loss(theta)

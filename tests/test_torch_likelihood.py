@@ -209,8 +209,10 @@ def test_fits_match_jax(tokamak_data):
 
 
 def test_non_lbfgs_optimizer_raises():
-    """CMA-ES is ported (test_torch_split.py); Adam is not yet."""
+    """CMA-ES (test_torch_split.py) and Adam (test_torch_adam.py) are
+    ported; an optimizer name outside ``_MINIMIZERS`` is refused."""
     X, z, _, _ = toy_data(6)
-    with pytest.raises(NotImplementedError, match="adam"):
+    assert sorted(ttrain._MINIMIZERS) == ["adam", "cmaes", "lbfgs"]
+    with pytest.raises(NotImplementedError, match="sgd"):
         ttrain.fit_sympgp(tvar.PER_SE, t64(X), t64(z), sig2n=1e-8,
-                          x0=(0.0, 0.0, 0.0), optimizer="adam")
+                          x0=(0.0, 0.0, 0.0), optimizer="sgd")

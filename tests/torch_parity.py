@@ -63,3 +63,13 @@ def toy_data(n=20, seed=0):
 def ics(seed=1, b=128):
     rng = np.random.default_rng(seed)
     return rng.uniform(0, 2 * np.pi, b), rng.uniform(-0.5, 0.5, b)
+
+
+def pendulum_posterior_data(n: int = 18):
+    """(X, z) numpy training set of the reduced pendulum workload whose
+    hyperposterior the sampler tests draw (``tests/test_posterior_parity.py``),
+    from the JAX package's system."""
+    from sympgpr_tpu.systems import pendulum as sys_pend
+
+    data = sys_pend.training_data(sys_pend.PendulumConfig(N=n))
+    return np.asarray(data["X"]), np.asarray(data["z"])
