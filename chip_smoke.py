@@ -44,7 +44,15 @@ per source, all at once) and drives the main paths on the card:
   on ``pendulum_implicit``, 8 chains, 25 + 25 transitions),
   ``sobol_main`` (the CLI's ``sobol``: 512 QoI rows x 960 steps) and
   ``adam_main`` (``fit_batch_adam`` over the Split tokamak's four sets
-  against ``minimize_adam``; ``tokamak_kernel`` with Adam, one rollout).
+  against ``minimize_adam``; ``tokamak_kernel`` with Adam, one rollout);
+* ``large_n_main``: ``workloads/large_n.py`` (the CLI's ``bench
+  --large-n``): ``measure(N=4096)`` times the build, the Cholesky, the NLL,
+  the closed-form and autodiff steps, 10 Adam steps, the triangular
+  inverse, the syrk and a 4096 x 256 deployment rollout, each stage's
+  kernels counted, beside the least time for its work; its float32
+  gradients against float64; ``rollout_sweep`` over N = 512 ... 8192 at
+  4096 x 256, each instance's kernel against its plain version; one
+  ``bench --large-n`` process.
 
 Each kernel is held against its plain PyTorch version at the main paths'
 shapes, and both are timed with CUDA events around one call (best of 3),
@@ -81,6 +89,9 @@ import time
 import numpy as np
 import torch
 
+from sympgpr_tpu_torch import profiling
+from sympgpr_tpu_torch.ops import rollout_check as rc
+
 KERNEL_SOURCE = "sympgpr_tpu_torch/csrc/rollout_step.cu"
 REPLACES = "sympgpr_tpu/ops/pallas_step.py:259"  # def _rollout_kernel
 LIBRARIES = ("rollout_step", "cov_blocks", "tri_matmul")
@@ -111,16 +122,6 @@ ATOL_F64 = 1e-9  # every step of 100, float64: ~1e-15 per step on regular orbits
 ATOL_F32 = 1e-4
 EOSC_RTOL_F32 = 0.1  # mean Eosc over 1000 steps, float32 (decoherent orbits)
 LOST_SLACK_F32 = 1
-# float32 at N=4096: a 4096-point sum carries float32 rounding above
-# ATOL_F32 (kernel vs plain version 8.9e-4 at steps 1-2 on an H100).  So
-# both float32 versions are held against the float64 rollout of the same
-# float32 columns: the kernel's L2 error at steps 1-2 within 3x the plain
-# version's, as the contraction check below (H100: kernel 1.6e-3, plain
-# 2.0e-3).  A rollout without one lane's points lies at 22; the phase
-# checks that the bound rejects it.
-ROLLOUT_NOISE_FACTOR = 3
-# the packed columns a float64 copy of a float32 pack converts
-_COLUMNS = ("uq", "uP", "a0", "a1", "auxq", "auxp", "auxa", "scal")
 
 # Peaks of one H100 SXM at 700 W (NVIDIA's data sheet): the least time a
 # kernel could take is the larger of its bytes over the memory rate and its
@@ -390,42 +391,13 @@ def _eosc_lost(Q, P):
             int(torch.isnan(P[-1]).sum()))
 
 
-def _circ(d, period):
-    """A difference of two angles on their circle of ``period``: in
-    [-period / 2, period / 2) (as it is where ``period`` is None)."""
-    if period is None:
-        return d
-    return torch.remainder(d + period / 2, period) - period / 2
-
-
-def _max_diff(a, b, period=None) -> float:
-    """max |a - b| where positions NaN in both count 0 and NaN in one
-    count inf (a lost orbit must be lost in both); on the circle of
-    ``period`` where one is given."""
-    d = _circ(a - b, period).abs()
-    d = torch.where(torch.isnan(a) & torch.isnan(b), 0.0, d)
-    return float(d.nan_to_num(math.inf).max())
-
-
 def _time(fn, reps=3, calls=1, warmup=True):
-    """Best of ``reps`` after one warm-up, in ms a call (CUDA events around
-    ``calls`` calls back to back: more than one lets the wrapper's host
-    work overlap the card's for a kernel of ~0.1 ms).  ``warmup=False``
-    where the caller has just run ``fn``."""
-    if warmup:
-        fn()
-    sync()
-    best = math.inf
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(calls):
-            fn()
-        b.record()
-        sync()
-        best = min(best, a.elapsed_time(b) / calls)
-    return best
+    """Best of ``reps`` after one warm-up, in ms a call: the package's one
+    timer, ``profiling.best_ms`` (CUDA events around ``calls`` calls back
+    to back: more than one lets the wrapper's host work overlap the card's
+    for a kernel of ~0.1 ms).  ``warmup=False`` where the caller has just
+    run ``fn``."""
+    return profiling.best_ms(fn, reps, calls, warmup, device="cuda")
 
 
 def kernel_ms(fn, pattern: str, calls: int = 20) -> float | None:
@@ -458,7 +430,7 @@ def phase_kernel_vs_plain(dev, models):
     Qk, Pk = cs.rollout_in_kernel(pm64, q0, p0, 100, loss_check=True)
     sync()
     Qr, Pr = cs.rollout_reference(pm64, q0, p0, 100, loss_check=True)
-    err64 = max(_max_diff(Qk, Qr), _max_diff(Pk, Pr))
+    err64 = max(rc.max_abs_diff(Qk, Qr), rc.max_abs_diff(Pk, Pr))
     nan_same64 = bool(torch.equal(torch.isnan(Pk), torch.isnan(Pr)))
 
     pm32 = cs.pack_models(sd, ad, mod_q=2 * math.pi)
@@ -466,7 +438,8 @@ def phase_kernel_vs_plain(dev, models):
     Qk, Pk = cs.rollout_in_kernel(pm32, q0, p0, NM, loss_check=True)
     sync()
     Qr, Pr = cs.rollout_reference(pm32, q0, p0, NM, loss_check=True)
-    err32 = max(_max_diff(Qk[1:3], Qr[1:3]), _max_diff(Pk[1:3], Pr[1:3]))
+    err32 = max(rc.max_abs_diff(Qk[1:3], Qr[1:3]),
+                rc.max_abs_diff(Pk[1:3], Pr[1:3]))
     eosc_k, lost_k = _eosc_lost(Qk, Pk)
     eosc_r, lost_r = _eosc_lost(Qr, Pr)
 
@@ -642,14 +615,14 @@ def phase_split_kernel_vs_plain(dev, models):
     Qk, Pk = cs.rollout_in_kernel(pm64, q0, p0, 100, **kw)
     sync()
     Qr, Pr = cs.rollout_reference(pm64, q0, p0, 100, **kw)
-    err64 = max(_max_diff(Qk, Qr), _max_diff(Pk, Pr))
+    err64 = max(rc.max_abs_diff(Qk, Qr), rc.max_abs_diff(Pk, Pr))
     nan_same64 = bool(torch.equal(torch.isnan(Pk), torch.isnan(Pr)))
     # wrong kernel 1: sub-map 0 on every step
     first = cs.pack_models_split([sd[0]] * 4, [ad[0]] * 4,
                                  mod_q=2 * math.pi, dtype=torch.float64)
     Qw, Pw = cs.rollout_in_kernel(first, q0, p0, 100, **kw)
     sync()
-    submap0_err64 = max(_max_diff(Qw, Qr), _max_diff(Pw, Pr))
+    submap0_err64 = max(rc.max_abs_diff(Qw, Qr), rc.max_abs_diff(Pw, Pr))
 
     pm32 = cs.pack_models_split(sd, ad, mod_q=2 * math.pi)
     q0, p0 = _ics(dev, torch.float32, cfg=cfg)
@@ -659,7 +632,8 @@ def phase_split_kernel_vs_plain(dev, models):
     plain_ms = _time(lambda: cs.rollout_reference(pm32, q0, p0, NM_SPLIT,
                                                   **kw), reps=1,
                      warmup=False)
-    err32 = max(_max_diff(Qk[1:3], Qr[1:3]), _max_diff(Pk[1:3], Pr[1:3]))
+    err32 = max(rc.max_abs_diff(Qk[1:3], Qr[1:3]),
+                rc.max_abs_diff(Pk[1:3], Pr[1:3]))
     # the energy on the sections (every 4th row), the lost orbits at the end
     eosc_k = _eosc_lost(Qk[::4], Pk[::4])[0]
     eosc_r = _eosc_lost(Qr[::4], Pr[::4])[0]
@@ -668,8 +642,8 @@ def phase_split_kernel_vs_plain(dev, models):
         cs.pack_models_split([sd[0]] * 4, [ad[0]] * 4, mod_q=2 * math.pi),
         q0, p0, 3, **kw)
     sync()
-    submap0_err32 = max(_max_diff(Qw[1:3], Qr[1:3]),
-                        _max_diff(Pw[1:3], Pr[1:3]))
+    submap0_err32 = max(rc.max_abs_diff(Qw[1:3], Qr[1:3]),
+                        rc.max_abs_diff(Pw[1:3], Pr[1:3]))
     ms = _time(lambda: cs.rollout_in_kernel(pm32, q0, p0, NM_SPLIT, **kw))
     b = rollout_bound(30, NM_SPLIT, pm32.ns, pm32.nas, 4, n_maps=4)
 
@@ -685,13 +659,13 @@ def phase_split_kernel_vs_plain(dev, models):
     Qbr, Pbr = cs.rollout_reference(pm64, qb, pb, 100, **kw)
     lost_new, lost_old = _first_lost(Pn), _first_lost(Po)
     boundary = dict(
-        err=max(_max_diff(Qn, Qbr), _max_diff(Pn, Pbr)),
+        err=max(rc.max_abs_diff(Qn, Qbr), rc.max_abs_diff(Pn, Pbr)),
         nan_pattern_equal=bool(torch.equal(torch.isnan(Pn),
                                            torch.isnan(Pbr))),
         lost_new_q=int((lost_new < 100).sum()),
         lost_old_q=int((lost_old < 100).sum()),
         orbits_lost_at_other_steps=int((lost_new != lost_old).sum()),
-        old_q_err=max(_max_diff(Qo, Qbr), _max_diff(Po, Pbr)),
+        old_q_err=max(rc.max_abs_diff(Qo, Qbr), rc.max_abs_diff(Po, Pbr)),
         old_q_nan_pattern_equal=bool(torch.equal(torch.isnan(Po),
                                                  torch.isnan(Pbr))))
     res = dict(f64_max_abs_err_100_steps=err64, f64_atol=ATOL_F64,
@@ -767,27 +741,15 @@ LARGE_SOURCES = {
 }
 
 
-def _large_counts(zero: bool = False) -> dict:
-    from sympgpr_tpu_torch.ops import cuda_cov, cuda_step, cuda_syrk, \
-        cuda_trimm
-
-    if zero:
-        cuda_cov.LAUNCHES_FWD = cuda_cov.LAUNCHES_BWD = 0
-        cuda_syrk.LAUNCHES = cuda_trimm.LAUNCHES = cuda_step.LAUNCHES = 0
-    return {"cov_fwd": cuda_cov.LAUNCHES_FWD,
-            "cov_bwd": cuda_cov.LAUNCHES_BWD, "syrk": cuda_syrk.LAUNCHES,
-            "trimm": cuda_trimm.LAUNCHES, "rollout": cuda_step.LAUNCHES}
-
-
 def phase_large_main(dev):
     from sympgpr_tpu_torch.workloads import tokamak_large
 
-    _large_counts(zero=True)
+    profiling.launch_counts(zero=True)
     t0 = time.perf_counter()
     out = tokamak_large.run(**LARGE, device=dev)
     sync()
     wall = time.perf_counter() - t0
-    launches = _large_counts()
+    launches = profiling.launch_counts()
     models = out.pop("models")
     sgp = models[0]
     hist = np.asarray(out.pop("hist"))
@@ -832,8 +794,7 @@ def _rollout_noise_check(pm, q0, p0, sm_count) -> dict:
     Qk, Pk = cs.rollout_in_kernel(pm, q0, p0, 3, loss_check=True)
     sync()
     Qr, Pr = cs.rollout_reference(pm, q0, p0, 3, loss_check=True)
-    exact = dataclasses.replace(
-        pm, **{f: getattr(pm, f).double() for f in _COLUMNS})
+    exact = rc.as_float64(pm)
     Qx, Px = cs.rollout_reference(exact, q0.double(), p0.double(), 3,
                                   loss_check=True)
     geo = cs.launch_geometry(q0.shape[0], pm.ns, pm.nas, q0.dtype, sm_count)
@@ -848,10 +809,10 @@ def _rollout_noise_check(pm, q0, p0, sm_count) -> dict:
 
     plain = err(Qr, Pr)
     return dict(ns=pm.ns, steps=2, geometry=geo.__dict__, err=err(Qk, Pk),
-                plain_err=plain, bound=ROLLOUT_NOISE_FACTOR * plain,
+                plain_err=plain, bound=rc.NOISE_FACTOR * plain,
                 lane_dropped_err=err(Qd, Pd),
-                max_abs_err=max(_max_diff(Qk[1:3], Qr[1:3]),
-                                _max_diff(Pk[1:3], Pr[1:3])),
+                max_abs_err=max(rc.max_abs_diff(Qk[1:3], Qr[1:3]),
+                                rc.max_abs_diff(Pk[1:3], Pr[1:3])),
                 nan_pattern_equal=bool(torch.equal(torch.isnan(Pk),
                                                    torch.isnan(Pr))))
 
@@ -897,7 +858,8 @@ def phase_rollout_shapes(dev, pm32, large_models):
     Qr, Pr = cs.rollout_reference(pm64, q0, p0, F64_LARGE_STEPS,
                                   loss_check=True)
     f64 = dict(ns=pm64.ns, steps=F64_LARGE_STEPS,
-               max_abs_err=max(_max_diff(Qk, Qr), _max_diff(Pk, Pr)),
+               max_abs_err=max(rc.max_abs_diff(Qk, Qr),
+                               rc.max_abs_diff(Pk, Pr)),
                nan_pattern_equal=bool(torch.equal(torch.isnan(Pk),
                                                   torch.isnan(Pr))),
                lost=int(torch.isnan(Pk[-1]).sum()),
@@ -909,6 +871,108 @@ def phase_rollout_shapes(dev, pm32, large_models):
     assert f32["lane_dropped_err"] > f32["bound"], f32
     assert f64["nan_pattern_equal"] and f64["max_abs_err"] <= ATOL_F64, f64
     assert f64["lost"] < 30, f64
+
+
+# workloads/large_n.py at the JAX package's bench size (K 8192 x 8192 in
+# float32), and its rollout sweep up to the kernel's widest float32 team
+LARGE_N = 4096
+LARGE_N_SIG2N = 1e-2
+SWEEP_NS = (512, 1024, 2048, 4096, 8192)
+SWEEP_B, SWEEP_NM = 4096, 256
+
+
+def phase_large_n_main(dev) -> dict:
+    """``workloads/large_n.py`` on the card: ``measure(N=4096)`` (each
+    stage's ms beside the least time for its work) and ``rollout_sweep``
+    over N = 512 ... 8192 at 4096 x 256, with the kernels' counts around
+    both; then, outside the counts, the float32 gradients against float64,
+    the kernel against its plain version on 32 orbits x 2 steps of
+    ``measure``'s deployment rollout (rebuilt from its trained theta) and
+    of each sweep instance, and one ``bench --large-n`` process."""
+    from sympgpr_tpu_torch.ops import cuda_step as cs
+    from sympgpr_tpu_torch.workloads import large_n
+
+    t0 = time.perf_counter()
+    profiling.launch_counts(zero=True)
+    m = large_n.measure(N=LARGE_N, sig2n=LARGE_N_SIG2N, device=dev)
+    sweep = large_n.rollout_sweep(Ns=SWEEP_NS, B=SWEEP_B, nm=SWEEP_NM,
+                                  device=dev)
+    sync()
+    launches = profiling.launch_counts()
+    t_main = time.perf_counter() - t0
+
+    n, elt = 2 * LARGE_N, 4
+    roll = rollout_bound(large_n.ROLLOUT_B, large_n.ROLLOUT_NM, LARGE_N, 8,
+                         elt)
+    bounds = {  # (key of measure, (least ms, set by))
+        "build": ("build_s", bound(n * n * elt, 0.0)),
+        "cholesky": ("cholesky_s", bound(2 * n * n * elt, n**3 / 3)),
+        "triinv": ("triinv_s", bound(2 * n * n * elt, n**3 / 3)),
+        "syrk": ("syrk_s", bound(2 * n * n * elt, n**3 / 3)),
+        "rollout": ("rollout_run_s", (roll["bound_ms"], roll["bound_by"])),
+    }
+    stages = {name: dict(ms=1e3 * m[key], bound_ms=b[0], bound_by=b[1],
+                         bound_share=b[0] / (1e3 * m[key]))
+              for name, (key, b) in bounds.items()}
+    for name, key in (("nll_eval", "nll_eval_s"),
+                      ("train_step", "train_step_s"),
+                      ("train_step_autodiff", "train_step_autodiff_s"),
+                      ("adam_10step", "adam_10step_s")):
+        stages[name] = dict(ms=1e3 * m[key])
+
+    grads = large_n.check_gradients(LARGE_N, LARGE_N_SIG2N, device=dev)
+    X, z = large_n.synthetic_training_set(LARGE_N, device=dev)
+    deployment = large_n.sweep_check(*large_n.deployment_instance(
+        torch.tensor(m["rollout_theta"], device=dev), X, z,
+        torch.tensor(LARGE_N_SIG2N, device=dev)), orbits=32, steps=2)
+    del X, z
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    checks = {}
+    for N, pm, q0, p0 in large_n.sweep_instances(SWEEP_NS, SWEEP_B, dev):
+        b = rollout_bound(SWEEP_B, SWEEP_NM, pm.ns, pm.nas, elt)
+        checks[N] = dict(
+            large_n.sweep_check(pm, q0, p0, orbits=32, steps=2),
+            ms=sweep[f"N{N}_ms"], bound_ms=b["bound_ms"],
+            bound_by=b["bound_by"], bound_share=b["bound_ms"]
+            / sweep[f"N{N}_ms"],
+            geometry=cs.launch_geometry(SWEEP_B, pm.ns, pm.nas,
+                                        torch.float32, sm_count).__dict__)
+    sync()
+    t1 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "sympgpr_tpu_torch", "bench", "--large-n",
+         "--n", str(LARGE_N), "--device", "cuda"],
+        capture_output=True, text=True, timeout=600)
+    lines = r.stdout.strip().splitlines()
+    bench = json.loads(lines[-1]) if r.returncode == 0 and lines else None
+    res = dict(measure=m, sweep=sweep, stages=stages, launches=launches,
+               gradients=grads, deployment_check=deployment,
+               sweep_checks=checks,
+               bench=dict(rc=r.returncode, s=time.perf_counter() - t1,
+                          metric=bench and bench["metric"],
+                          value=bench and bench["value"],
+                          unit=bench and bench["unit"],
+                          stderr_tail=r.stderr[-2000:]),
+               main_s=t_main, wall_s=time.perf_counter() - t0)
+    emit("large_n_main", **res)
+    for k, count in launches.items():
+        assert count > 0, f"large_n launched no {k} kernel"
+    assert set(m["launches"]) == set(large_n.STAGE_KERNELS), m["launches"]
+    for stage, kernels in large_n.STAGE_KERNELS.items():
+        got = {k for k, c in m["launches"][stage].items() if c > 0}
+        assert got == kernels, (stage, m["launches"][stage])
+    assert m["dtype"] == "float32" and m["N"] == LARGE_N, m
+    assert m["nll_decreased"], m
+    # every deployment orbit stays finite over 256 steps (H100: 1.0)
+    assert m["rollout_finite_frac"] == 1.0, m
+    assert deployment["ok"], deployment
+    assert grads["ok"], grads
+    for N, c in checks.items():
+        assert c["ok"], (N, c)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert bench["metric"] == "large_n_build_plus_cholesky_gflops", bench
+    assert math.isfinite(bench["value"]) and bench["value"] > 0, bench
+    return launches
 
 
 def _rel_to_max(a, b) -> float:
@@ -1287,10 +1351,6 @@ ATOL_F32_STDMAP = 1e-3
 STATS_RTOL_F32 = 0.1
 
 
-def _counts_zero() -> None:
-    _large_counts(zero=True)
-
-
 def phase_stdmap_main(dev):
     """standard_map and standard_map_explicit (k = 2, N = 20, 30 orbits,
     nm = 100) through the kernel backend (float32, mod_p and pdiff in the
@@ -1410,12 +1470,12 @@ def phase_stdmap_large(dev):
     kernel's mod_p / pdiff mode)."""
     from sympgpr_tpu_torch.workloads import standard_map as wl
 
-    _counts_zero()
+    profiling.launch_counts(zero=True)
     t0 = time.perf_counter()
     out = wl.run_large(**STDMAP_LARGE, device=dev)
     sync()
     wall = time.perf_counter() - t0
-    launches = _large_counts()
+    launches = profiling.launch_counts()
     models = out.pop("models")
     fit_ms = (1e3 * (out["fit_s"] - out["fit_escalation_s"])
               / STDMAP_LARGE["steps"])
@@ -1432,12 +1492,6 @@ def phase_stdmap_large(dev):
     return models, launches
 
 
-def _periods(pm, n_out: int) -> list:
-    """The circle of each rollout output: Q's mod_q, P's mod_p and none
-    for pdiff's unwrapped D."""
-    return [pm.mod_q, pm.mod_p, None][:n_out]
-
-
 def _one_step_along(pm, traj, kw):
     """The kernel's one step (8 Newton iterations) from each of the plain
     trajectory's rows 0 .. nm - 2 (one launch over all of them as orbits)
@@ -1447,74 +1501,22 @@ def _one_step_along(pm, traj, kw):
 
     q, p = (t[:-1].reshape(-1).contiguous() for t in traj[:2])
     got = cs.rollout_in_kernel(pm, q, p, 2, iters=8, **kw)
-    errs = [_max_diff(g[1], t[1:].reshape(-1), per)
-            for g, t, per in zip(got[:2], traj[:2], _periods(pm, 2))]
+    errs = [rc.max_abs_diff(g[1], t[1:].reshape(-1), per)
+            for g, t, per in zip(got[:2], traj[:2], rc.periods(pm, 2))]
     if len(traj) == 3:  # pdiff's increment of each step
-        errs.append(_max_diff(got[2][1] - got[2][0],
-                              (traj[2][1:] - traj[2][:-1]).reshape(-1)))
+        errs.append(rc.max_abs_diff(got[2][1] - got[2][0],
+                                    (traj[2][1:] - traj[2][:-1]).reshape(-1)))
     return max(errs)
-
-
-def _f32_vs_f64(pm, q, p, kw, got, ref) -> dict:
-    """A float32 kernel trajectory ``got`` and the plain version's ``ref``
-    from the same columns and ICs, each held against float64 on the same
-    float32 columns: the L2 distance at steps 1-2 to the float64 rollout
-    (``err_*``), and the L2 residual of every later row against one
-    float64 step from the row before it in the same trajectory
-    (``residual_*``; each trajectory's own, so the chaos of the free
-    orbits does not enter).  NaN entries are left out, angles compared on
-    their circles; ``max_abs_err_steps_1_2`` is the kernel against the
-    plain version."""
-    import dataclasses
-
-    from sympgpr_tpu_torch.ops import cuda_step as cs
-
-    exact = dataclasses.replace(pm, **{f: getattr(pm, f).double()
-                                       for f in _COLUMNS})
-    periods = _periods(pm, len(got))
-    x = cs.rollout_reference(exact, q.double(), p.double(), 3, iters=8,
-                             **kw)
-
-    def l2(pairs) -> float:
-        d = torch.cat([_circ(a.double() - b, per).reshape(-1)
-                       for (a, b), per in zip(pairs, periods)])
-        return float(d[~torch.isnan(d)].norm())
-
-    def err(out) -> float:
-        return l2([(o[1:3], e[1:3]) for o, e in zip(out, x)])
-
-    def residual(traj) -> float:
-        rows = [t[:-1].reshape(-1).double() for t in traj[:2]]
-        step = cs.rollout_reference(exact, *rows, 2, iters=8, **kw)
-        pairs = [(t[1:].reshape(-1), s[1]) for t, s in zip(traj[:2], step)]
-        if len(traj) == 3:  # pdiff's increment of each step
-            D = traj[2].double()
-            pairs.append(((D[1:] - D[:-1]).reshape(-1),
-                          step[2][1] - step[2][0]))
-        return l2(pairs)
-
-    r = dict(
-        max_abs_err_steps_1_2=max(
-            _max_diff(g[1:3], t[1:3], per)
-            for g, t, per in zip(got, ref, periods)),
-        nan_pattern_equal=all(torch.equal(torch.isnan(g), torch.isnan(t))
-                              for g, t in zip(got, ref)),
-        err_kernel=err(got), err_plain=err(ref),
-        residual_kernel=residual(got), residual_plain=residual(ref))
-    r["err_bound"] = ROLLOUT_NOISE_FACTOR * r["err_plain"]
-    r["residual_bound"] = ROLLOUT_NOISE_FACTOR * r["residual_plain"]
-    r["err"] = err  # for the wrong trajectories; popped before printing
-    return r
 
 
 def _large_mode_check(dev, sgp, aux, ics) -> dict:
     """standard_map_large's rollout (mod_p / pdiff, N=4096: the float32
     instance with 16 points a lane) against its plain version on the
     workload's models and ICs over its 200 rows: float32 by
-    ``_f32_vs_f64``, the kernel's errors within 3x the plain version's;
-    float64 one step from each of the plain version's 200 rows within
-    ATOL_F64, as ``rollout_shapes`` holds tokamak_large's float64 at
-    N=4096."""
+    ``rollout_check.f32_vs_f64``, the kernel's errors within 3x the plain
+    version's; float64 one step from each of the plain version's 200 rows
+    within ATOL_F64, as ``rollout_shapes`` holds tokamak_large's float64
+    at N=4096."""
     from sympgpr_tpu_torch.ops import cuda_step as cs
 
     two_pi = 2 * math.pi
@@ -1529,7 +1531,7 @@ def _large_mode_check(dev, sgp, aux, ics) -> dict:
         sync()
         ref = cs.rollout_reference(pm, q, p, nm, iters=8, **kw)
         if dtype == torch.float32:
-            out["f32"] = _f32_vs_f64(pm, q, p, kw, got, ref)
+            out["f32"] = rc.f32_vs_f64(pm, q, p, kw, got, ref)
             out["f32"].pop("err")
         else:
             out["f64"] = dict(
@@ -1549,7 +1551,7 @@ def _ulp_sensitivity(pm, q0, p0, nm, kw) -> list:
     a = cs.rollout_reference(pm, q0, p0, nm, 8, **kw)
     b = cs.rollout_reference(pm, q0, torch.nextafter(p0, p0 + 1), nm, 8,
                              **kw)
-    return [max(_max_diff(x[i], y[i]) for x, y in zip(a, b))
+    return [max(rc.max_abs_diff(x[i], y[i]) for x, y in zip(a, b))
             for i in (1, 10, 50, nm - 1)]
 
 
@@ -1642,19 +1644,20 @@ def phase_modes_kernel_vs_plain(dev, stdmap, pendulum, large):
             if mod_p is not None:
                 bad["pdiff_from_wrapped_P"] = (ref[0], ref[1], ref[1])
             if dtype == torch.float64:
-                per = _periods(pm, len(ref))
+                per = rc.periods(pm, len(ref))
                 for k, w in bad.items():  # rows 1-2 of the one-step gate
                     wrong[f"{k}_f64_{name}"] = (max(
-                        _max_diff(a[1:3], b[1:3], c)
+                        rc.max_abs_diff(a[1:3], b[1:3], c)
                         for a, b, c in zip(w, ref, per)), ATOL_F64_STEP)
                 r["f64_step_err_100_rows"] = _one_step_along(pm, ref, kw)
                 r["f64_trajectory_err_100_steps"] = max(
-                    _max_diff(g, t, c) for g, t, c in zip(got, ref, per))
+                    rc.max_abs_diff(g, t, c)
+                    for g, t, c in zip(got, ref, per))
                 r["f64_nan_pattern_equal"] = nan_equal
                 r["plain_ulp_sensitivity_steps_1_10_50_99"] = \
                     _ulp_sensitivity(pm, q, p, 100, kw)
                 continue
-            f32 = _f32_vs_f64(pm, q, p, kw, got, ref)
+            f32 = rc.f32_vs_f64(pm, q, p, kw, got, ref)
             err = f32.pop("err")
             r.update({f"f32_{k}": v for k, v in f32.items()})
             for k, w in bad.items():
@@ -1828,7 +1831,7 @@ def phase_pert_henon_main(dev):
     from sympgpr_tpu_torch.ops import cuda_step
 
     res, models = {}, {}
-    _counts_zero()
+    profiling.launch_counts(zero=True)
     for name in PERT_HENON:
         out = _pert_henon_run(name, "kernel", dev)
         t = out["traj"]
@@ -1888,11 +1891,11 @@ def phase_pert_henon_kernel_vs_plain(dev, models):
     step from each plain row within ATOL_F64; float32 at steps 1-2 against
     the float64 rollout of the same float32 columns, and each
     trajectory's residual against one float64 step from its own rows, the
-    kernel's L2 within 3x the plain version's (``_f32_vs_f64``).  Each
-    float32 rollout (the workload's 5 Newton iterations) timed beside its
-    plain version and its bound.  The generic autodiff path against the
-    fast path for GENERIC_STEPS steps of the Henon-Heiles model in
-    float64."""
+    kernel's L2 within 3x the plain version's
+    (``rollout_check.f32_vs_f64``).  Each float32 rollout (the workload's
+    5 Newton iterations) timed beside its plain version and its bound.
+    The generic autodiff path against the fast path for GENERIC_STEPS
+    steps of the Henon-Heiles model in float64."""
     from sympgpr_tpu_torch.maps.symplectic import MapConfig, apply_map
     from sympgpr_tpu_torch.ops import cuda_step as cs
 
@@ -1917,11 +1920,11 @@ def phase_pert_henon_kernel_vs_plain(dev, models):
             if dtype == torch.float64:
                 r["f64_step_err_all_rows"] = _one_step_along(pm, ref, {})
                 r["f64_trajectory_err"] = max(
-                    _max_diff(g, t, c)
-                    for g, t, c in zip(got, ref, _periods(pm, 2)))
+                    rc.max_abs_diff(g, t, c)
+                    for g, t, c in zip(got, ref, rc.periods(pm, 2)))
                 r["f64_nan_pattern_equal"] = nan_equal
                 continue
-            f32 = _f32_vs_f64(pm, q, p, {}, got, ref)
+            f32 = rc.f32_vs_f64(pm, q, p, {}, got, ref)
             f32.pop("err")
             r.update({f"f32_{k}": v for k, v in f32.items()})
         # timing: the workload's float32 rollout (5 Newton iterations)
@@ -1950,7 +1953,7 @@ def phase_pert_henon_kernel_vs_plain(dev, models):
                  for g, f in zip(gen[:2], fast[:2]))
     generic = dict(steps=GENERIC_STEPS, device=str(gen.q.device),
                    dtype=str(gen.q.dtype), t_s=t_generic,
-                   max_abs_diff=max(_max_diff(g, f)
+                   max_abs_diff=max(rc.max_abs_diff(g, f)
                                     for g, f in zip(gen[:2], fast[:2])),
                    excess_over_tol=excess)
     emit("pert_henon_kernel_vs_plain", models=res, timing=timing,
@@ -2057,7 +2060,7 @@ def phase_posterior_parity(dev):
     from sympgpr_tpu_torch.eval import posterior as post
     from sympgpr_tpu_torch.gp import hmc, nuts
 
-    _large_counts(zero=True)
+    profiling.launch_counts(zero=True)
     prob = post.pendulum_problem(dev)
     res = {"n_train": int(prob["X"].shape[0])}
     t0 = time.perf_counter()
@@ -2119,7 +2122,7 @@ def phase_posterior_parity(dev):
             syncs=n_syncs, evals=counter["evals"] - 1,
             depth=gpu["depth"].tolist() if kind == "nuts" else None)
     res["transition_gpu_vs_cpu"] = trans
-    res["kernel_launches"] = _large_counts()
+    res["kernel_launches"] = profiling.launch_counts()
     emit("posterior_parity", **res)
     assert res["quadrature"]["edge_mass"] < 1e-3, res["quadrature"]
     assert min(res["nuts"]["accept"]) > post.NUTS_MIN_ACCEPT, res["nuts"]
@@ -2159,7 +2162,7 @@ def phase_sample_main(dev):
         counter = {"evals": 0}
         hmc.nll_logprob = lambda *a, **k: _counting(nll_logprob(*a, **k),
                                                     counter)
-        _large_counts(zero=True)
+        profiling.launch_counts(zero=True)
         args = cli.build_parser().parse_args(
             ["sample", workload, "--sampler", sampler, "--device", str(dev)]
             + SAMPLE_MAIN_CUT)
@@ -2174,7 +2177,8 @@ def phase_sample_main(dev):
             cli=out, s=wall, evals=counter["evals"],
             ms_per_eval=1e3 * wall / counter["evals"],
             log_probs_finite=bool(torch.isfinite(r.log_probs).all()),
-            device=str(r.samples.device), kernel_launches=_large_counts())
+            device=str(r.samples.device),
+            kernel_launches=profiling.launch_counts())
     emit("sample_main", **res)
     for workload, r in res.items():
         assert r["log_probs_finite"], (workload, r)
@@ -2190,13 +2194,13 @@ def phase_sobol_main(dev):
     from sympgpr_tpu_torch import __main__ as cli
     from sympgpr_tpu_torch import sensitivity as sens
 
-    _large_counts(zero=True)
+    profiling.launch_counts(zero=True)
     args = cli.build_parser().parse_args(["sobol", "--device", str(dev)])
     t0 = time.perf_counter()
     out = cli.cmd_sobol(args)
     sync()
     wall = time.perf_counter() - t0
-    launches = _large_counts()
+    launches = profiling.launch_counts()
     design = sens.saltelli_sample(8, [(0.0, 0.004), (0.0, 2 * np.pi)])
     qoi = sens.tokamak_chaos_qoi(n_turns=2)
     t0 = time.perf_counter()
@@ -2234,7 +2238,7 @@ def phase_adam_main(dev, split_sets, lbfgs_models):
     Xs, zs, sig2n = split_sets
     kw = dict(transform="linear", steps=300)
     x0 = (0.5, 0.5, 10.0)
-    _large_counts(zero=True)
+    profiling.launch_counts(zero=True)
     t0 = time.perf_counter()
     thetas, nlls = train.fit_batch_adam(PER_SE, Xs, zs, sig2n=sig2n, x0=x0,
                                         **kw)
@@ -2252,7 +2256,7 @@ def phase_adam_main(dev, split_sets, lbfgs_models):
               for m, r in enumerate(rows))
     rel_nll = max(abs(float(nlls[m]) - r.fun) / abs(r.fun)
                   for m, r in enumerate(rows))
-    batch_launches = _large_counts()
+    batch_launches = profiling.launch_counts()
 
     cfg = tk.TokamakConfig()
     from sympgpr_tpu_torch.ops import cuda_step
@@ -2319,6 +2323,7 @@ def main() -> None:
     large = phase_large_kernels_vs_plain(dev, large_models[0])
     phase_rollout_shapes(dev, pm32, large_models)
     del large_models
+    large_n_launches = phase_large_n_main(dev)
     phase_escalation(dev)
     stdmap, stdmap_launches = phase_stdmap_main(dev)
     pendulum, pendulum_launches = phase_pendulum_main(dev)
@@ -2335,7 +2340,8 @@ def main() -> None:
              "replaces": REPLACES,
              "launches": launches + split_launches + stdmap_launches
              + pendulum_launches + sm_large_launches["rollout"]
-             + pert_henon_launches + adam_launches,
+             + pert_henon_launches + adam_launches
+             + large_n_launches["rollout"],
              "max_abs_err": err32, "ms": ms, "plain_ms": plain_ms,
              "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
              "library_ms": None}]
@@ -2343,7 +2349,8 @@ def main() -> None:
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces,
                      "launches": large_launches[name]
-                     + sm_large_launches[name], **large[name]})
+                     + sm_large_launches[name] + large_n_launches[name],
+                     **large[name]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

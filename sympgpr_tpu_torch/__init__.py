@@ -19,7 +19,7 @@ from sympgpr_tpu_torch.kernels import (
     Kernel,
     get_kernel,
 )
-from sympgpr_tpu_torch.gp.covariance import build_K, build_Kreg
+from sympgpr_tpu_torch.gp.covariance import build_K, build_Kreg, pack_points
 from sympgpr_tpu_torch.gp.likelihood import nll, nll_batched, nll_reg
 from sympgpr_tpu_torch.gp.model import (
     AuxGP,
@@ -32,7 +32,10 @@ from sympgpr_tpu_torch.gp.train import (
     fit_auxgp,
     fit_batch_adam,
     fit_sympgp,
+    fit_sympgp_ondevice,
+    fit_sympgp_separable,
     minimize_adam,
+    minimize_cmaes,
     minimize_lbfgs,
 )
 from sympgpr_tpu_torch.gp.hmc import sample_hmc

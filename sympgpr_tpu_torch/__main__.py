@@ -15,12 +15,24 @@
   python -m sympgpr_tpu_torch sample tokamak --sampler nuts --device cuda
   python -m sympgpr_tpu_torch sample pendulum_implicit --sampler hmc --device cuda
   python -m sympgpr_tpu_torch sobol --n 128 --turns 30 --device cuda
+  python -m sympgpr_tpu_torch run large_n --n 4096 --device cuda
+  python -m sympgpr_tpu_torch run pendulum_implicit --backend kernel --plots out/
+  python -m sympgpr_tpu_torch bench --large-n --n 4096 --device cuda
+  python -m sympgpr_tpu_torch bench --rollout-sweep --device cuda
 
 Each workload without ``_kernel`` rolls out on the float64 fast path; with
-it, through the fused rollout in float32.  ``sample`` draws a workload's
-GP hyperposterior (log10 hyperparameters, sig last) with NUTS or adaptive
-HMC, all chains batched in float64; ``sobol`` computes the tokamak's Sobol
-indices over (eps, phase).  Both print the JSON keys of the JAX CLI.
+it, through the fused rollout in float32.  ``--backend kernel`` (or
+``pallas``) and ``--backend generic`` choose that over the name's own, and
+the JAX package's names ``tokamak_pallas``, ``pendulum_pallas`` and
+``henon_pallas`` run the ``_kernel`` workloads.  ``--plots DIR`` writes the
+run's Poincare portrait.  ``sample`` draws a workload's GP hyperposterior
+(log10 hyperparameters, sig last) with NUTS or adaptive HMC, all chains
+batched in float64; ``sobol`` computes the tokamak's Sobol indices over
+(eps, phase); ``run large_n`` and ``bench --large-n`` time the large-N
+pipeline's stages, ``bench --rollout-sweep`` the rollout kernel over
+training-set sizes (``workloads/large_n.py``).  All print the JSON keys of
+the JAX CLI.  Distributed training (``--distributed``) is not ported yet;
+nor is the plain ``bench`` headline.
 
 ``--device`` defaults to ``cuda`` and fails when no GPU is present; pass
 ``--device cpu`` to run on the CPU.
@@ -66,6 +78,12 @@ OTHERS = {
        for k, b in (("", "generic"), ("_kernel", "kernel"))},
     "standard_map_large": None,
 }
+# the JAX package's names of the fused-rollout workloads
+ALIASES = {"tokamak_pallas": "tokamak_kernel",
+           "pendulum_pallas": "pendulum_implicit_kernel",
+           "henon_pallas": "henon_heiles_kernel"}
+SLICE_F = ("distributed large-N training (--distributed, --steps) is not "
+           "ported yet: it waits for the torch.distributed slice")
 # workload module -> (system module, its config class); the pendulum's
 # three workloads share PendulumConfig
 CONFIGS = {
@@ -79,7 +97,7 @@ def _summarize(out: dict) -> dict:
     """The keys ``sympgpr_tpu.__main__._summarize`` prints."""
     s = {k: out[k] for k in ("training_error", "t_train", "t_apply",
                              "one_step_mse", "period_ratio", "n_lost",
-                             "method", "optimizer") if k in out}
+                             "n_train", "method", "optimizer") if k in out}
     for k in ("Eosc", "gd", "Eosc_se"):
         if k in out:
             s[f"mean_{k}"] = float(np.nanmean(out[k]))
@@ -98,52 +116,69 @@ def _device(name: str):
     return device
 
 
-def _run_other(args, device):
+def _names() -> list[str]:
+    """Every workload name the port runs: its own, ``large_n`` and the
+    JAX package's aliases."""
+    return sorted({**WORKLOADS, **OTHERS, "large_n": None, **ALIASES})
+
+
+def resolve(name: str, backend: str | None = None) -> str:
+    """The port's workload for a name of either package and ``--backend``
+    (``generic``, or ``kernel`` / its alias ``pallas``), which overrides
+    the name's own backend where the workload has both; unknown names
+    exit."""
+    if name not in _names():
+        sys.exit(f"unknown workload {name!r}; available: {_names()}")
+    name = ALIASES.get(name, name)
+    base = name.removesuffix("_kernel")
+    if backend is not None and f"{base}_kernel" in _names() \
+            and base in _names():
+        name = base if backend == "generic" else f"{base}_kernel"
+    return name
+
+
+def _run_other(name, args, device) -> dict:
     import importlib
 
-    if args.workload == "standard_map_large":
-        from sympgpr_tpu_torch.workloads import standard_map
-
-        out = standard_map.run_large(
-            n_train=args.n or 4096, nm=args.nm or 200,
-            steps=args.steps or 60,
-            **({"sig2n": args.sig2n} if args.sig2n else {}), device=device)
-        out.pop("models")
-        print(json.dumps(out))
-        return
-    name, backend, kw, fields, nm = OTHERS[args.workload]
+    name, backend, kw, fields, nm = OTHERS[name]
     wl = importlib.import_module(f"sympgpr_tpu_torch.workloads.{name}")
     system, config = CONFIGS.get(name, ("pendulum", "PendulumConfig"))
     Config = getattr(importlib.import_module(
         f"sympgpr_tpu_torch.systems.{system}"), config)
     cfg = Config(**fields, nm=args.nm or nm)
-    out = wl.run(cfg, backend=backend, **kw, device=device)
-    print(json.dumps(_summarize(out), default=str))
+    return wl.run(cfg, backend=backend, **kw, device=device)
 
 
-def cmd_run(args):
-    if args.workload not in WORKLOADS and args.workload not in OTHERS:
-        sys.exit(f"unknown workload {args.workload!r}; "
-                 f"available: {sorted({**WORKLOADS, **OTHERS})}")
-    device = _device(args.device)
-    if args.workload in OTHERS:
-        _run_other(args, device)
-        return
-    if args.workload == "tokamak_large":
+def _run_large(name, args, device) -> dict:
+    """``large_n``, ``tokamak_large`` and ``standard_map_large``: their
+    whole result dict, without the fitted models."""
+    if name == "large_n":
+        from sympgpr_tpu_torch.workloads import large_n
+
+        return large_n.measure(N=args.n or 4096, device=device)
+    sig2n = {"sig2n": args.sig2n} if args.sig2n else {}
+    if name == "tokamak_large":
         from sympgpr_tpu_torch.workloads import tokamak_large
 
         out = tokamak_large.run(
             n_train=args.n or 4096, nm=args.nm or 1000,
-            steps=args.steps or 40,
-            **({"sig2n": args.sig2n} if args.sig2n else {}), device=device)
-        out.pop("models")
-        print(json.dumps(out))
-        return
+            steps=args.steps or 40, plots=args.plots, **sig2n, device=device)
+    else:
+        from sympgpr_tpu_torch.workloads import standard_map
+
+        out = standard_map.run_large(
+            n_train=args.n or 4096, nm=args.nm or 200,
+            steps=args.steps or 60, **sig2n, device=device)
+    out.pop("models")
+    return out
+
+
+def _run_tokamak(name, args, device) -> dict:
     from sympgpr_tpu_torch.systems import tokamak as tk
     from sympgpr_tpu_torch.systems.tokamak import TokamakConfig
     from sympgpr_tpu_torch.workloads import tokamak
 
-    backend, fields, nm, optimizer = WORKLOADS[args.workload]
+    backend, fields, nm, optimizer = WORKLOADS[name]
     cfg = TokamakConfig(**fields, nm=args.nm or nm)
     out = tokamak.run(cfg, optimizer=args.optimizer or optimizer,
                       backend=backend, with_reference=args.with_reference,
@@ -151,12 +186,70 @@ def cmd_run(args):
     if "gd" not in out:
         (r0, th0), _ = tk.test_initial_conditions(cfg)
         out.update(tokamak.one_turn_gd(cfg, out["traj"], r0, th0, device))
+    return out
+
+
+def cmd_run(args) -> dict:
+    """Run a workload; print its summary (the large-N ones: their whole
+    result) and, with ``--plots``, write its portrait.  Returns the
+    result."""
+    name = resolve(args.workload, args.backend)
+    if name == "large_n" and args.distributed:
+        sys.exit(SLICE_F)
+    device = _device(args.device)
+    if args.plots:
+        # portraits need matplotlib: fail before the run, not after it
+        import matplotlib  # noqa: F401
+    if name in ("large_n", "tokamak_large", "standard_map_large"):
+        out = _run_large(name, args, device)
+        print(json.dumps(out, default=str))
+        return out
+    run = _run_other if name in OTHERS else _run_tokamak
+    out = run(name, args, device)
     print(json.dumps(_summarize(out), default=str))
+    if args.plots and "traj" in out:
+        import os
+
+        from sympgpr_tpu_torch import plotting
+
+        os.makedirs(args.plots, exist_ok=True)
+        traj = out["traj"]
+        p = plotting.portrait(
+            traj.q.cpu().numpy(), traj.p.cpu().numpy(),
+            path=os.path.join(args.plots, f"{args.workload}_portrait.png"),
+            title=args.workload)
+        print(f"wrote {p}")
+    return out
 
 
 def cmd_list(args):
-    for name in sorted({**WORKLOADS, **OTHERS}):
+    for name in _names():
         print(name)
+
+
+def cmd_bench(args) -> dict:
+    """``--large-n``: the large-N pipeline's stages at ``--n``
+    (``large_n.measure``), headline build + Cholesky GFLOP/s;
+    ``--rollout-sweep``: the rollout kernel over training-set sizes.  The
+    plain benchmark and ``--distributed`` are not ported and exit."""
+    if args.distributed or args.steps is not None:
+        sys.exit(SLICE_F)
+    if not (args.large_n or args.rollout_sweep):
+        sys.exit("bench: the port's headline benchmark is not written yet; "
+                 "run bench --large-n or bench --rollout-sweep")
+    from sympgpr_tpu_torch.workloads import large_n
+
+    device = _device(args.device)
+    if args.rollout_sweep:
+        out = {"metric": "rollout_sweep",
+               "detail": large_n.rollout_sweep(device=device)}
+    else:
+        detail = large_n.measure(N=args.n, reps=args.reps, device=device)
+        out = {"metric": "large_n_build_plus_cholesky_gflops",
+               "value": detail["build_plus_chol_gflops"],
+               "unit": "GFLOP/s", "detail": detail}
+    print(json.dumps(out))
+    return out
 
 
 def cmd_sobol(args) -> dict:
@@ -277,7 +370,7 @@ def build_parser() -> argparse.ArgumentParser:
                        help="hyperparameter optimizer of the tokamak "
                             "workloads")
     p_run.add_argument("--n", type=int, default=None,
-                       help="training-set size (tokamak_large, "
+                       help="training-set size (large_n, tokamak_large, "
                             "standard_map_large)")
     p_run.add_argument("--steps", type=int, default=None,
                        help="optimizer steps (tokamak_large, "
@@ -286,6 +379,16 @@ def build_parser() -> argparse.ArgumentParser:
                        help="fit jitter of tokamak_large and "
                             "standard_map_large (escalates x10 if the "
                             "float32 Cholesky rejects it)")
+    p_run.add_argument("--backend", default=None,
+                       choices=("generic", "kernel", "pallas"),
+                       help="map-application backend: the float64 fast "
+                            "path, or the fused rollout kernel in float32 "
+                            "(pallas: an alias of kernel); overrides the "
+                            "name's own")
+    p_run.add_argument("--plots", default=None,
+                       help="directory for portrait PNGs")
+    p_run.add_argument("--distributed", action="store_true",
+                       help="large_n: distributed fit (not ported yet)")
     p_run.add_argument("--device", default="cuda",
                        help="torch device (default cuda)")
     p_run.add_argument("--with-reference", action="store_true",
@@ -320,6 +423,23 @@ def build_parser() -> argparse.ArgumentParser:
     p_sample.add_argument("--device", default="cuda",
                           help="torch device (default cuda)")
     p_sample.set_defaults(fn=cmd_sample)
+
+    p_bench = sub.add_parser("bench", help="large-N and rollout timings")
+    p_bench.add_argument("--large-n", action="store_true",
+                         help="the large-N pipeline's stages")
+    p_bench.add_argument("--n", type=int, default=4096,
+                         help="training-set size for --large-n")
+    p_bench.add_argument("--reps", type=int, default=8)
+    p_bench.add_argument("--rollout-sweep", action="store_true",
+                         help="rollout kernel throughput against "
+                              "training-set size")
+    p_bench.add_argument("--distributed", action="store_true",
+                         help="distributed fit (not ported yet)")
+    p_bench.add_argument("--steps", type=int, default=None,
+                         help="optimizer steps for --distributed")
+    p_bench.add_argument("--device", default="cuda",
+                         help="torch device (default cuda)")
+    p_bench.set_defaults(fn=cmd_bench)
     return ap
 
 

@@ -19,7 +19,11 @@ def _nanstd(x: Tensor, dim: int) -> Tensor:
 
 
 def energy_oscillation(H: Tensor, dim: int = 0) -> Tensor:
-    """std(H)/mean(H) along the time axis; NaN (lost) samples ignored."""
+    """std(H)/mean(H) along the time axis; NaN (lost) samples ignored.
+
+    The axis is the keyword ``dim=`` (torch's name), where the JAX
+    package's ``energy_oscillation`` takes ``axis=``; ``axis=`` is not
+    accepted."""
     return _nanstd(H, dim) / torch.nanmean(H, dim=dim)
 
 

@@ -73,3 +73,14 @@ def build_K_fast(kernel: Kernel, X: Tensor, X0: Tensor, params: Tensor,
     return sig * torch.cat([torch.cat([dxdx, dxdy], -1),
                             torch.cat([dxdy, dydy], -1)], -2)
 
+
+
+def pack_points(q: Tensor, P: Tensor) -> Tensor:
+    """Stack coordinate arrays (N,) + (N,) -> (N, 2) points."""
+    return torch.stack([q, P], dim=-1)
+
+
+def unpack_flat(x: Tensor) -> Tensor:
+    """Convert the reference's flat ``hstack((q, P))`` layout to (N, 2)."""
+    n = x.shape[0] // 2
+    return torch.stack([x[:n], x[n:]], dim=-1)

@@ -27,12 +27,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from typing import Any
 
 import numpy as np
 import torch
 
+from sympgpr_tpu_torch import profiling
 from sympgpr_tpu_torch.eval import metrics
 from sympgpr_tpu_torch.kernels import PER_SE
 from sympgpr_tpu_torch.maps.symplectic import MapConfig, apply_map
@@ -56,28 +58,6 @@ def _float64(model):
         f.name: getattr(model, f.name).to(torch.float64)
         for f in dataclasses.fields(model)
         if isinstance(getattr(model, f.name), torch.Tensor)})
-
-
-def _kernel_ms(fn, device: torch.device, reps: int = 3) -> float:
-    """Best of ``reps`` calls of ``fn`` after a warm-up, in ms: CUDA events
-    on a GPU, the host clock on the CPU."""
-    fn()
-    _sync(device)
-    best = math.inf
-    for _ in range(reps):
-        if device.type == "cuda":
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            best = min(best, a.elapsed_time(b))
-        else:
-            t0 = time.perf_counter()
-            fn()
-            best = min(best, (time.perf_counter() - t0) * 1e3)
-    return best
 
 
 def run(
@@ -104,8 +84,14 @@ def run(
     kernel alone, with the test ICs tiled to that batch.
     ``with_f64_rollout`` adds ``mean_Eosc_f64``, ``n_lost_f64`` and
     ``t_f64_rollout_s``: the fitted models cast to float64 on the run's
-    device, rolled out for ``nm`` turns by ``apply_map``.  ``compensated``
-    (a TPU workaround) and ``plots`` are not ported and raise.
+    device, rolled out for ``nm`` turns by ``apply_map``.  ``plots`` (a
+    directory) writes the Poincare portrait of the rollout beside the
+    float64 reference orbits from the same ICs over ``max(nm // 4, 1)``
+    turns, one section point a turn, as
+    ``tokamak_large_N{n_train}_portrait.png`` (``out["portrait"]``, and
+    ``t_plots_s``: the reference is the eager midpoint integrator, so
+    plots are opt-in).  ``compensated`` (a TPU workaround) is not ported
+    and raises.
     """
     from sympgpr_tpu_torch.gp.train import fit_auxgp
     from sympgpr_tpu_torch.ops import cuda_step
@@ -115,7 +101,8 @@ def run(
             "compensated double-float32 sums are not ported (a TPU "
             "workaround; float64 is native on the GPU)")
     if plots:
-        raise NotImplementedError("plots are not ported yet")
+        # plots need matplotlib: fail before the fit and the reference
+        import matplotlib  # noqa: F401
     device = torch.device(device)
     cfg = tk.TokamakConfig(N=n_train)
     dtype = torch.float32 if device.type == "cuda" else torch.float64
@@ -200,14 +187,33 @@ def run(
             metrics.energy_oscillation(H64, dim=0).cpu().numpy()))
         out["n_lost_f64"] = int(torch.isnan(traj64.p[-1]).sum())
 
+    if plots:
+        # the Poincare portrait against the float64 reference sections from
+        # the same ICs, so the overlay panel compares structure directly
+        from sympgpr_tpu_torch import plotting
+
+        t0 = time.perf_counter()
+        os.makedirs(plots, exist_ok=True)
+        ref = tk.reference_orbits(cfg, r0, th0, max(nm // 4, 1), device)
+        refs = ref[:: cfg.nph].cpu().numpy()  # one section point per turn
+        out["portrait"] = plotting.portrait(
+            np.mod(Qt.cpu().numpy(), 2 * np.pi), Pt.cpu().numpy(),
+            np.mod(refs[:, :, 1], 2 * np.pi),
+            refs[:, :, 0] * float(cfg.momentum_scale),
+            path=os.path.join(plots,
+                              f"tokamak_large_N{n_train}_portrait.png"),
+            xlabel=r"$\theta$", ylabel=r"$p_\theta \cdot 10^2$",
+            title=f"tokamak_large N={n_train}")
+        out["t_plots_s"] = time.perf_counter() - t0
+
     if rollout_batch and rollout_batch > len(r0):
         reps = -(-rollout_batch // len(r0))
         qb = q0.repeat(reps)[:rollout_batch].to(torch.float32).contiguous()
         pb = p0.repeat(reps)[:rollout_batch].to(torch.float32).contiguous()
         nmb = min(nm, 256)
         pm = cuda_step.pack_models(model, aux, mod_q=2 * math.pi)
-        ms = _kernel_ms(lambda: cuda_step.rollout_in_kernel(
-            pm, qb, pb, nmb, loss_check=True), device)
+        ms = profiling.best_ms(lambda: cuda_step.rollout_in_kernel(
+            pm, qb, pb, nmb, loss_check=True), device=device)
         out["rollout_batch"] = rollout_batch
         out["rollout_ms"] = ms
         out["rollout_steps_per_s"] = (nmb - 1) * rollout_batch / (ms * 1e-3)

@@ -103,18 +103,60 @@ def test_pert_pendulum_henon_and_generic_map_modules_import_without_jax():
     assert r.returncode == 0, r.stderr
 
 
+def test_surface_modules_import_without_jax():
+    """The large-N workload, profiling, plotting, guiding-center, native
+    and CPU-baseline modules by name (the walk above must reach them
+    too)."""
+    code = (
+        "import importlib\n"
+        "for n in ('workloads.large_n', 'profiling', 'plotting',\n"
+        "          'systems.guiding_center', 'native',\n"
+        "          'baselines.reference_cpu'):\n"
+        "    importlib.import_module('sympgpr_tpu_torch.' + n)\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in\n"
+        "            ('jax', 'sympgpr_tpu') and sys.modules[m] is not None]\n"
+        "from sympgpr_tpu_torch.workloads import large_n\n"
+        "assert hasattr(large_n, 'measure')\n"
+        "assert hasattr(large_n, 'rollout_sweep')\n")
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+
+
+# the port's top-level names beyond the JAX package's
+PORT_ONLY = {"nll_batched", "models_from_arrays", "fit_batch_adam",
+             "minimize_adam", "sample_nuts"}
+
+
+def _public(pkg) -> set[str]:
+    import types
+
+    return {n for n, v in vars(pkg).items() if not n.startswith("_")
+            and not isinstance(v, types.ModuleType)}
+
+
+def test_exports_are_jax_names():
+    """The port exports every name of ``sympgpr_tpu`` but the sharded
+    sampler, which waits for distribution, and its own extras."""
+    import sympgpr_tpu
+    import sympgpr_tpu_torch
+
+    assert (_public(sympgpr_tpu_torch) - PORT_ONLY
+            == _public(sympgpr_tpu) - {"sample_hmc_sharded"})
+
+
 def test_cli_without_jax():
     r = _run("import runpy; sys.argv = ['sympgpr_tpu_torch', 'list'];"
              "runpy.run_module('sympgpr_tpu_torch', run_name='__main__')")
     assert r.returncode == 0, r.stderr
     assert r.stdout.split() == [
-        "henon_heiles", "henon_heiles_kernel", "pendulum_explicit", "pendulum_explicit_kernel", "pendulum_implicit",
-        "pendulum_implicit_kernel", "pendulum_period_unknown",
-        "pendulum_period_unknown_kernel", "pert_pendulum",
-        "pert_pendulum_kernel", "standard_map",
+        "henon_heiles", "henon_heiles_kernel", "henon_pallas", "large_n",
+        "pendulum_explicit", "pendulum_explicit_kernel", "pendulum_implicit",
+        "pendulum_implicit_kernel", "pendulum_pallas",
+        "pendulum_period_unknown", "pendulum_period_unknown_kernel",
+        "pert_pendulum", "pert_pendulum_kernel", "standard_map",
         "standard_map_explicit", "standard_map_explicit_kernel",
         "standard_map_kernel", "standard_map_large", "tokamak",
-        "tokamak_kernel", "tokamak_large", "tokamak_split",
+        "tokamak_kernel", "tokamak_large", "tokamak_pallas", "tokamak_split",
         "tokamak_split_kernel"]
 
 

@@ -136,10 +136,22 @@ def test_f64_rollout_matches_jax(port_run, jax_run):
                                rtol=RTOL_EOSC_F64)
 
 
-@pytest.mark.parametrize("option", [{"compensated": True}, {"plots": "out"}])
+@pytest.mark.parametrize("option", [{"compensated": True}])
 def test_options_not_ported_raise(option):
     with pytest.raises(NotImplementedError):
         twl.run(n_train=8, nm=2, steps=1, device=CPU, **option)
+
+
+def test_plots_write_the_portrait(tmp_path):
+    """``plots``: the rollout's portrait beside the float64 reference
+    sections, one a turn over max(nm // 4, 1) turns."""
+    pytest.importorskip("matplotlib")
+    out = twl.run(n_train=8, nm=4, steps=1, plots=str(tmp_path),
+                  device=CPU)
+    png = tmp_path / "tokamak_large_N8_portrait.png"
+    assert out["portrait"] == str(png)
+    assert png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    assert out["t_plots_s"] > 0
 
 
 def test_cli_runs_tokamak_large(capsys):
