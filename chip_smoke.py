@@ -52,7 +52,17 @@ per source, all at once) and drives the main paths on the card:
   kernels counted, beside the least time for its work; its float32
   gradients against float64; ``rollout_sweep`` over N = 512 ... 8192 at
   4096 x 256, each instance's kernel against its plain version; one
-  ``bench --large-n`` process.
+  ``bench --large-n`` process;
+* ``distributed_main`` (slice F): ``run large_n --distributed`` at N=4096,
+  20 Adam steps on one NCCL rank in float32 (its alpha against a dense
+  float64 solve, its gradient at theta0 against float64, one
+  factorization and one value and gradient timed); two ranks sharing the
+  card under gloo (this script with ``--dist-rank R DIR``): the float64
+  value, gradient and alpha at N=1024 against one rank, the bench batch
+  32768 x 1000 through ``rollout_in_kernel_sharded`` (each rank's kernel
+  columns held to the one-process kernel run and to the plain version),
+  ``sample_nuts_sharded`` (4 chains x 20 transitions) equal to its
+  per-shard runs.
 
 Each kernel is held against its plain PyTorch version at the main paths'
 shapes, and both are timed with CUDA events around one call (best of 3),
@@ -2303,6 +2313,283 @@ def phase_adam_main(dev, split_sets, lbfgs_models):
     return launches
 
 
+# --- slice F: distribution -----------------------------------------------------
+
+# the distributed fit at the BENCH_r05 N (K 8192^2 in float32, 20 Adam steps
+# of the workload's defaults), and the parity size of the two-rank float64
+# run (K 2048^2)
+DIST_N, DIST_STEPS = 4096, 20
+DIST_PARITY_N, DIST_BLOCK, DIST_SIG2N = 1024, 64, 1e-2
+# the keys of sympgpr_tpu/workloads/large_n.py::run_distributed's summary
+# (:124-145; the parity keys only at N <= parity_limit = 2048)
+JAX_DIST_KEYS = {"N", "devices", "mesh", "dtype", "steps", "nll_first",
+                 "nll_last", "nll_decreased", "hyp", "sig", "t_train_s",
+                 "t_train_warm_s", "per_device_K_bytes", "checkpoint"}
+# gates of the float32 distributed fit on the card: its alpha against a
+# dense float64 solve at the fitted theta (relative to max |alpha|; H100:
+# 1.05e-4), and its gradient at theta0 against the float64 closed form
+# (relative L2; H100: 4.0e-4, where the single-device fit's cuSOLVER
+# factor gives 1.3e-2 and its gate is 5e-2), each about 10x the reading
+DIST_ALPHA_RTOL = 1e-3
+DIST_GRAD_RTOL = 5e-3
+# two ranks against one in float64: value, gradient and alpha (relative)
+DIST_RANKS_RTOL = 1e-10
+# sample_nuts_sharded over the two ranks: 4 chains x (10 + 10) transitions
+# of the pendulum_implicit posterior
+DIST_CHAINS, DIST_WARMUP, DIST_SAMPLES = 4, 10, 10
+
+
+def _dist_problem(dev, dtype, N):
+    """(X, z, theta0, sig2n) of run_distributed's synthetic problem."""
+    from sympgpr_tpu_torch.workloads import large_n
+
+    X, z = large_n.synthetic_training_set(N, dtype, device=dev)
+    theta = torch.tensor(large_n.DIST_X0, dtype=dtype, device=dev)
+    return X, z, theta, torch.tensor(DIST_SIG2N, dtype=dtype, device=dev)
+
+
+def _dist_f64_case(mesh, dev) -> dict:
+    """The float64 value, gradient and alpha at theta0, N = 1024."""
+    from sympgpr_tpu_torch.distributed import large
+    from sympgpr_tpu_torch.kernels import PER_SE
+
+    X, z, theta, s2n = _dist_problem(dev, torch.float64, DIST_PARITY_N)
+    v, g = large.sharded_nll_large_value_and_grad(
+        PER_SE, mesh, theta, s2n, X, z, block=DIST_BLOCK)
+    hyp = 10.0 ** theta
+    a = large.sharded_alpha_large(PER_SE, mesh, hyp[:-1], hyp[-1], s2n, X, z,
+                                  block=DIST_BLOCK)
+    return dict(v=v.cpu(), g=g.cpu(), alpha=a.cpu())
+
+
+def _dist_sampler(dev):
+    """(logprob, x0s) of the pendulum_implicit posterior, the CLI's."""
+    from sympgpr_tpu_torch import __main__ as cli
+    from sympgpr_tpu_torch.gp import hmc
+
+    kern, X, z, sig2n, x0 = cli._sample_problem("pendulum_implicit", dev)
+    x0s = torch.as_tensor(hmc.start_points(x0, DIST_CHAINS, 0),
+                          dtype=torch.float64, device=dev)
+    return hmc.nll_logprob(kern, X, z, sig2n), x0s
+
+
+def dist_rank(rank: int, out: str) -> None:
+    """One of two ranks sharing the card under gloo (``--dist-rank``): the
+    float64 fit quantities, the bench batch through
+    ``rollout_in_kernel_sharded`` (its kernel launches counted around that
+    one call) and ``sample_nuts_sharded``; saves them for the parent."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from sympgpr_tpu_torch.distributed import init as dinit
+    from sympgpr_tpu_torch.distributed.sharded import \
+        rollout_in_kernel_sharded
+    from sympgpr_tpu_torch.gp.nuts import sample_nuts_sharded
+
+    dev = dinit.initialize("cuda:0", backend="gloo",
+                           init_method=f"file://{out}/rendezvous",
+                           world_size=2, rank=rank)
+    try:
+        kp = init_device_mesh("cuda", (2,), mesh_dim_names=("kp",))
+        dp = init_device_mesh("cuda", (2,), mesh_dim_names=("dp",))
+        res = {"backend": torch.distributed.get_backend()}
+        t0 = time.perf_counter()
+        res["f64"] = _dist_f64_case(kp, dev)
+        res["f64_s"] = time.perf_counter() - t0
+        roll = torch.load(f"{out}/rollout.pt", weights_only=False)
+        pm, q0, p0 = roll["pm"], roll["q0"], roll["p0"]
+        profiling.launch_counts(zero=True)
+        Q, P = rollout_in_kernel_sharded(dp, pm, q0, p0, NM, loss_check=True)
+        sync()
+        res["launches"] = profiling.launch_counts()
+        res["rows"] = (Q[:3].cpu(), P[:3].cpu())
+        res["lost"] = int(torch.isnan(P[-1]).sum())
+        res["finite"] = bool(torch.isfinite(Q[:, ~torch.isnan(P[-1])]).all())
+        res["rollout_ms"] = _time(lambda: rollout_in_kernel_sharded(
+            dp, pm, q0, p0, NM, loss_check=True))
+        logprob, x0s = _dist_sampler(dev)
+        t0 = time.perf_counter()
+        nuts = sample_nuts_sharded(logprob, x0s, kp, DIST_SAMPLES,
+                                   n_warmup=DIST_WARMUP, seed=0)
+        sync()
+        res["nuts_s"] = time.perf_counter() - t0
+        res["nuts"] = tuple(t.cpu() for t in nuts)
+        torch.save(res, f"{out}/rank{rank}.pt")
+    finally:
+        dinit.shutdown()
+
+
+def phase_distributed_main(dev, pm32) -> int:
+    """Slice F on the card.  (a) ``run large_n --distributed`` at N = 4096,
+    20 steps, one rank on NCCL in float32, in its own process: the NLL
+    falls, the JAX keys, the distributed alpha against a dense float64
+    solve at the fitted theta; in this process on a world of one rank, the
+    float32 distributed gradient at theta0 against the float64 closed
+    form, and the factorization and one value and gradient timed.  (b) two
+    ranks sharing the card under gloo (CUDA tensors staged through the
+    host): the float64 value, gradient and alpha at N = 1024 against this
+    process's one-rank run; the bench batch (32768 x 1000, N = 80) through
+    ``rollout_in_kernel_sharded``, each rank's kernel columns held by
+    ``ops/rollout_check.py`` to the one-process kernel run and to the plain
+    version; ``sample_nuts_sharded`` equal to the per-shard runs.  Returns
+    the ranks' rollout launches."""
+    import shutil
+    import tempfile
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from sympgpr_tpu_torch.distributed import init as dinit
+    from sympgpr_tpu_torch.distributed import large
+    from sympgpr_tpu_torch.gp import likelihood
+    from sympgpr_tpu_torch.gp.covariance import build_K_fast
+    from sympgpr_tpu_torch.gp.model import load_models
+    from sympgpr_tpu_torch.gp.nuts import sample_nuts
+    from sympgpr_tpu_torch.kernels import PER_SE
+    from sympgpr_tpu_torch.ops import cuda_step as cs
+
+    t_phase = time.perf_counter()
+    out = tempfile.mkdtemp(prefix="sympgpr_dist_")
+    # (b) starts first: its ranks reach the card while (a) runs
+    q0, p0 = _ics(dev, torch.float32, math.ceil(BENCH_ORBITS / 30))
+    q0, p0 = q0[:BENCH_ORBITS].contiguous(), p0[:BENCH_ORBITS].contiguous()
+    torch.save({"pm": pm32, "q0": q0, "p0": p0}, f"{out}/rollout.pt")
+    logs = [open(f"{out}/rank{r}.log", "w") for r in range(2)]
+    ranks = [subprocess.Popen([sys.executable, __file__, "--dist-rank",
+                               str(r), out], stdout=log,
+                              stderr=subprocess.STDOUT)
+             for r, log in enumerate(logs)]
+
+    # (a) the CLI's distributed fit, one rank on NCCL
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "sympgpr_tpu_torch", "run", "large_n",
+         "--distributed", "--n", str(DIST_N), "--steps", str(DIST_STEPS),
+         "--device", "cuda"], capture_output=True, text=True, timeout=600)
+    fit_wall = time.perf_counter() - t0
+    assert r.returncode == 0, r.stderr[-3000:]
+    fit = json.loads(r.stdout.strip().splitlines()[-1])
+    model, _, _ = load_models(fit["checkpoint"], dev)
+    X64, z64 = model.X.double(), model.z.double()
+    params64, sig64 = model.params.double(), model.sig.double()
+    Ky = build_K_fast(PER_SE, X64, X64, params64, sig64)
+    Ky.diagonal().add_(model.sig2n.double())
+    a64 = torch.cholesky_solve(z64[:, None], torch.linalg.cholesky(Ky))[:, 0]
+    del Ky
+    alpha_rel = float((model.alpha.double() - a64).abs().max()
+                      / a64.abs().max())
+
+    # this process: a world of one rank on NCCL
+    dinit.initialize(dev)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("kp",))
+        X, z, theta, s2n = _dist_problem(dev, torch.float32, DIST_N)
+        v32, g32 = large.sharded_nll_large_value_and_grad(
+            PER_SE, mesh, theta, s2n, X, z, block=DIST_BLOCK)
+        X, z, theta64, s2n64 = _dist_problem(dev, torch.float64, DIST_N)
+        v64, g64 = likelihood.nll_value_and_grad_theta(PER_SE, theta64,
+                                                       s2n64, X, z)
+        grad_rel = float((g32.double() - g64).norm() / g64.norm())
+        value_rel = float(abs(float(v32) - float(v64)) / abs(float(v64)))
+        X, z, theta, s2n = _dist_problem(dev, torch.float32, DIST_N)
+        group = mesh.get_group("kp")
+        n_pad, nb, nb_loc = large._geometry(DIST_N, 1, DIST_BLOCK)
+        hyp = 10.0 ** theta
+        slab = large.build_K_cyclic(PER_SE, mesh, hyp[:-1], hyp[-1], s2n, X,
+                                    block=DIST_BLOCK)[0]
+        factor_ms = _time(lambda: large._factorize_robust(
+            slab, None, 2 * DIST_N, 0, group, 1, nb, nb_loc, DIST_BLOCK))
+        vg_ms = _time(lambda: large.sharded_nll_large_value_and_grad(
+            PER_SE, mesh, theta, s2n, X, z, block=DIST_BLOCK), reps=2)
+        del slab, X, z
+        one = _dist_f64_case(mesh, dev)
+    finally:
+        dinit.shutdown()
+
+    # (b) the two ranks' results against one process
+    for p in ranks:
+        try:
+            p.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            for q in ranks:
+                q.kill()
+            raise
+    for r, p in enumerate(ranks):
+        logs[r].close()
+        assert p.returncode == 0, open(f"{out}/rank{r}.log").read()[-3000:]
+    got = [torch.load(f"{out}/rank{r}.pt", weights_only=False)
+           for r in range(2)]
+    f64 = [dict(value_rel=abs(float(g["f64"]["v"]) / float(one["v"]) - 1),
+                grad_rel=float((g["f64"]["g"] - one["g"]).abs().max()
+                               / one["g"].abs().max()),
+                alpha_rel=float((g["f64"]["alpha"] - one["alpha"]).abs().max()
+                                / one["alpha"].abs().max()))
+           for g in got]
+    Q1, P1 = cs.rollout_in_kernel(pm32, q0, p0, NM, loss_check=True)
+    sync()
+    half = BENCH_ORBITS // 2
+    kw = {"loss_check": True}
+    roll = []
+    for rk, g in enumerate(got):
+        cols = slice(rk * half, rk * half + 32)
+        q, p = q0[cols].contiguous(), p0[cols].contiguous()
+        mine = tuple(t[:, :32].to(dev) for t in g["rows"])
+        one_proc = (Q1[:3, cols], P1[:3, cols])
+        plain = cs.rollout_reference(pm32, q, p, 3, **kw)
+        vs_one = rc.f32_vs_f64(pm32, q, p, kw, mine, one_proc)
+        vs_plain = rc.f32_vs_f64(pm32, q, p, kw, mine, plain)
+        vs_one.pop("err")
+        vs_plain.pop("err")
+        shard = slice(rk * half, (rk + 1) * half)
+        roll.append(dict(
+            vs_one_process=vs_one, vs_plain=vs_plain,
+            rows_equal_one_process=all(
+                torch.equal(t.to(dev), o[:3, shard])
+                for t, o in zip(g["rows"], (Q1, P1))),
+            lost=g["lost"], lost_one_process=int(
+                torch.isnan(P1[-1, shard]).sum()),
+            finite=g["finite"], ms=g["rollout_ms"],
+            launches=g["launches"]["rollout"]))
+    logprob, x0s = _dist_sampler(dev)
+    shards = [sample_nuts(logprob, x0s[2 * rk:2 * rk + 2], DIST_SAMPLES,
+                          n_warmup=DIST_WARMUP, seed=rk) for rk in range(2)]
+    want = [torch.cat(f).cpu() for f in zip(*shards)]
+    nuts_equal = [all(torch.equal(a, b) for a, b in zip(g["nuts"], want))
+                  for g in got]
+    one_ms = _time(lambda: cs.rollout_in_kernel(pm32, q0, p0, NM,
+                                                loss_check=True))
+    res = dict(
+        fit=fit, fit_process_s=fit_wall,
+        fit_ms_per_step=1e3 * fit["t_train_warm_s"] / (DIST_STEPS - 1),
+        alpha_vs_dense_f64_rel=alpha_rel, alpha_gate=DIST_ALPHA_RTOL,
+        grad_f32_vs_f64_rel=grad_rel, value_f32_vs_f64_rel=value_rel,
+        grad_gate=DIST_GRAD_RTOL, factor_ms=factor_ms, value_and_grad_ms=vg_ms,
+        ranks_backend=[g["backend"] for g in got],
+        ranks_f64=f64, ranks_f64_s=[g["f64_s"] for g in got],
+        ranks_gate=DIST_RANKS_RTOL, rollout=roll,
+        rollout_one_process_ms=one_ms, nuts_equal=nuts_equal,
+        nuts_s=[g["nuts_s"] for g in got],
+        nuts_accept=float(want[2].mean()),
+        wall_s=time.perf_counter() - t_phase)
+    emit("distributed_main", **res)
+    shutil.rmtree(out)
+    assert set(fit) == JAX_DIST_KEYS, sorted(fit)
+    assert fit["devices"] == 1 and fit["mesh"] == "nccl", fit
+    assert fit["dtype"] == "float32" and fit["nll_decreased"], fit
+    assert np.all(np.isfinite(fit["hyp"])) and math.isfinite(fit["sig"]), fit
+    assert alpha_rel <= DIST_ALPHA_RTOL, alpha_rel
+    assert grad_rel <= DIST_GRAD_RTOL, grad_rel
+    assert res["ranks_backend"] == ["gloo", "gloo"], res["ranks_backend"]
+    for f in f64:
+        assert max(f.values()) <= DIST_RANKS_RTOL, f
+    for r in roll:
+        assert r["launches"] == 1 and r["finite"], r
+        for check in (r["vs_one_process"], r["vs_plain"]):
+            assert check["nan_pattern_equal"], check
+            assert check["err_kernel"] <= check["err_bound"], check
+            assert check["residual_kernel"] <= check["residual_bound"], check
+    assert all(nuts_equal), nuts_equal
+    return sum(r["launches"] for r in roll)
+
+
 def main() -> None:
     dev, smi = phase_device()
     # the plain versions are the yardstick: full float32 matrix products
@@ -2335,13 +2622,14 @@ def main() -> None:
     phase_sample_main(dev)
     phase_sobol_main(dev)
     adam_launches = phase_adam_main(dev, split_sets, out["models"])
+    dist_launches = phase_distributed_main(dev, pm32)
     b = rollout_bound(30, NM, pm32.ns, pm32.nas, 4)
     rows = [{"name": "rollout_step", "route": "cuda", "source": KERNEL_SOURCE,
              "replaces": REPLACES,
              "launches": launches + split_launches + stdmap_launches
              + pendulum_launches + sm_large_launches["rollout"]
              + pert_henon_launches + adam_launches
-             + large_n_launches["rollout"],
+             + large_n_launches["rollout"] + dist_launches,
              "max_abs_err": err32, "ms": ms, "plain_ms": plain_ms,
              "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
              "library_ms": None}]
@@ -2358,4 +2646,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dist-rank"]:
+        dist_rank(int(sys.argv[2]), sys.argv[3])
+    else:
+        main()

@@ -8,7 +8,8 @@ symplectic map from derivative observations with a GP, then iterate the
 learned map for long-time Hamiltonian dynamics (the tokamak field lines,
 one map or Split, and at large N; the pendulum, the perturbed pendulum,
 the standard map and Henon-Heiles); sample the hyperparameter posterior
-with HMC or NUTS and compute Sobol indices of the tokamak's chaos.
+with HMC or NUTS and compute Sobol indices of the tokamak's chaos; fit at
+large N block-cyclically over ``torch.distributed`` ranks.
 """
 
 from sympgpr_tpu_torch.kernels import (
@@ -38,8 +39,8 @@ from sympgpr_tpu_torch.gp.train import (
     minimize_cmaes,
     minimize_lbfgs,
 )
-from sympgpr_tpu_torch.gp.hmc import sample_hmc
-from sympgpr_tpu_torch.gp.nuts import sample_nuts
+from sympgpr_tpu_torch.gp.hmc import sample_hmc, sample_hmc_sharded
+from sympgpr_tpu_torch.gp.nuts import sample_nuts, sample_nuts_sharded
 from sympgpr_tpu_torch.maps.symplectic import (
     MapConfig,
     Trajectory,

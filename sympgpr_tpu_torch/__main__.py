@@ -16,8 +16,11 @@
   python -m sympgpr_tpu_torch sample pendulum_implicit --sampler hmc --device cuda
   python -m sympgpr_tpu_torch sobol --n 128 --turns 30 --device cuda
   python -m sympgpr_tpu_torch run large_n --n 4096 --device cuda
+  python -m sympgpr_tpu_torch run large_n --distributed --device cuda
+  python -m torch.distributed.run --nproc-per-node 4 -m sympgpr_tpu_torch run large_n --distributed
   python -m sympgpr_tpu_torch run pendulum_implicit --backend kernel --plots out/
   python -m sympgpr_tpu_torch bench --large-n --n 4096 --device cuda
+  python -m sympgpr_tpu_torch bench --large-n --distributed --steps 20 --device cuda
   python -m sympgpr_tpu_torch bench --rollout-sweep --device cuda
 
 Each workload without ``_kernel`` rolls out on the float64 fast path; with
@@ -30,9 +33,11 @@ run's Poincare portrait.  ``sample`` draws a workload's GP hyperposterior
 batched in float64; ``sobol`` computes the tokamak's Sobol indices over
 (eps, phase); ``run large_n`` and ``bench --large-n`` time the large-N
 pipeline's stages, ``bench --rollout-sweep`` the rollout kernel over
-training-set sizes (``workloads/large_n.py``).  All print the JSON keys of
-the JAX CLI.  Distributed training (``--distributed``) is not ported yet;
-nor is the plain ``bench`` headline.
+training-set sizes (``workloads/large_n.py``); with ``--distributed`` both
+run the block-cyclic fit over the ranks of ``torch.distributed``
+(``large_n.run_distributed``: one rank, or the launcher's, each on
+``cuda:LOCAL_RANK``; the JSON is printed by rank 0).  All print the JSON
+keys of the JAX CLI.  The plain ``bench`` headline is not ported yet.
 
 ``--device`` defaults to ``cuda`` and fails when no GPU is present; pass
 ``--device cpu`` to run on the CPU.
@@ -82,8 +87,6 @@ OTHERS = {
 ALIASES = {"tokamak_pallas": "tokamak_kernel",
            "pendulum_pallas": "pendulum_implicit_kernel",
            "henon_pallas": "henon_heiles_kernel"}
-SLICE_F = ("distributed large-N training (--distributed, --steps) is not "
-           "ported yet: it waits for the torch.distributed slice")
 # workload module -> (system module, its config class); the pendulum's
 # three workloads share PendulumConfig
 CONFIGS = {
@@ -155,6 +158,10 @@ def _run_large(name, args, device) -> dict:
     if name == "large_n":
         from sympgpr_tpu_torch.workloads import large_n
 
+        if args.distributed:
+            return large_n.run_distributed(N=args.n or 1024,
+                                           steps=args.steps or 20,
+                                           device=device)
         return large_n.measure(N=args.n or 4096, device=device)
     sig2n = {"sig2n": args.sig2n} if args.sig2n else {}
     if name == "tokamak_large":
@@ -194,15 +201,15 @@ def cmd_run(args) -> dict:
     result) and, with ``--plots``, write its portrait.  Returns the
     result."""
     name = resolve(args.workload, args.backend)
-    if name == "large_n" and args.distributed:
-        sys.exit(SLICE_F)
+    if args.distributed and name != "large_n":
+        sys.exit("--distributed runs large_n only")
     device = _device(args.device)
     if args.plots:
         # portraits need matplotlib: fail before the run, not after it
         import matplotlib  # noqa: F401
     if name in ("large_n", "tokamak_large", "standard_map_large"):
         out = _run_large(name, args, device)
-        print(json.dumps(out, default=str))
+        _print_rank0(out)
         return out
     run = _run_other if name in OTHERS else _run_tokamak
     out = run(name, args, device)
@@ -222,6 +229,14 @@ def cmd_run(args) -> dict:
     return out
 
 
+def _print_rank0(out: dict) -> None:
+    """Print the JSON line once: on rank 0 of a distributed run."""
+    import os
+
+    if int(os.environ.get("RANK", 0)) == 0:
+        print(json.dumps(out, default=str))
+
+
 def cmd_list(args):
     for name in _names():
         print(name)
@@ -229,17 +244,28 @@ def cmd_list(args):
 
 def cmd_bench(args) -> dict:
     """``--large-n``: the large-N pipeline's stages at ``--n``
-    (``large_n.measure``), headline build + Cholesky GFLOP/s;
+    (``large_n.measure``), headline build + Cholesky GFLOP/s; with
+    ``--distributed``, the block-cyclic fit of ``--steps`` Adam steps
+    (``large_n.run_distributed``), headline its seconds;
     ``--rollout-sweep``: the rollout kernel over training-set sizes.  The
-    plain benchmark and ``--distributed`` are not ported and exit."""
-    if args.distributed or args.steps is not None:
-        sys.exit(SLICE_F)
+    plain benchmark is not ported and exits."""
     if not (args.large_n or args.rollout_sweep):
         sys.exit("bench: the port's headline benchmark is not written yet; "
                  "run bench --large-n or bench --rollout-sweep")
+    if (args.distributed or args.steps is not None) and not (
+            args.large_n and args.distributed):
+        sys.exit("bench: --distributed and --steps go with --large-n "
+                 "--distributed")
     from sympgpr_tpu_torch.workloads import large_n
 
     device = _device(args.device)
+    if args.distributed:
+        detail = large_n.run_distributed(N=args.n, steps=args.steps or 20,
+                                         device=device)
+        out = {"metric": "large_n_distributed_fit_s",
+               "value": detail["t_train_s"], "unit": "s", "detail": detail}
+        _print_rank0(out)
+        return out
     if args.rollout_sweep:
         out = {"metric": "rollout_sweep",
                "detail": large_n.rollout_sweep(device=device)}
@@ -373,8 +399,8 @@ def build_parser() -> argparse.ArgumentParser:
                        help="training-set size (large_n, tokamak_large, "
                             "standard_map_large)")
     p_run.add_argument("--steps", type=int, default=None,
-                       help="optimizer steps (tokamak_large, "
-                            "standard_map_large)")
+                       help="optimizer steps (large_n --distributed, "
+                            "tokamak_large, standard_map_large)")
     p_run.add_argument("--sig2n", type=float, default=None,
                        help="fit jitter of tokamak_large and "
                             "standard_map_large (escalates x10 if the "
@@ -388,7 +414,8 @@ def build_parser() -> argparse.ArgumentParser:
     p_run.add_argument("--plots", default=None,
                        help="directory for portrait PNGs")
     p_run.add_argument("--distributed", action="store_true",
-                       help="large_n: distributed fit (not ported yet)")
+                       help="large_n: block-cyclic fit over the ranks of "
+                            "torch.distributed")
     p_run.add_argument("--device", default="cuda",
                        help="torch device (default cuda)")
     p_run.add_argument("--with-reference", action="store_true",
@@ -434,7 +461,8 @@ def build_parser() -> argparse.ArgumentParser:
                          help="rollout kernel throughput against "
                               "training-set size")
     p_bench.add_argument("--distributed", action="store_true",
-                         help="distributed fit (not ported yet)")
+                         help="with --large-n: block-cyclic distributed "
+                              "fit")
     p_bench.add_argument("--steps", type=int, default=None,
                          help="optimizer steps for --distributed")
     p_bench.add_argument("--device", default="cuda",

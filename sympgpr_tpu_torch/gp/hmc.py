@@ -12,8 +12,8 @@ times.
 JAX's threefry streams cannot be reproduced in torch, so each transition
 is a pure function of its state and its draws (``hmc_transition``); the
 samplers take the draws from one ``torch.Generator`` on the chains'
-device.  ``sample_hmc_sharded`` (chains over several devices) is not
-ported.
+device.  ``sample_hmc_sharded`` deals the chains over the ranks of a
+``torch.distributed`` mesh.
 """
 
 from __future__ import annotations
@@ -208,6 +208,34 @@ def sample_hmc(
         step_size=step_size, seed=seed, adapt_step_size=adapt_step_size,
         target_accept=target_accept)
     return HMCResult(xs, lps, accs.to(x0s.dtype).mean(1))
+
+
+def shard_chains(x0s: Tensor, mesh, seed: int):
+    """(this rank's chains, its seed) for a sampler over all ranks of the
+    flattened mesh: a contiguous shard of the chains and seed ``seed * D +
+    rank``, a distinct stream a shard (a shared seed would couple the
+    chains through common random numbers)."""
+    from sympgpr_tpu_torch.distributed.init import flat_index
+
+    r, n = flat_index(mesh)
+    if x0s.shape[0] % n:
+        raise ValueError(f"{x0s.shape[0]} chains do not divide over {n} "
+                         f"ranks")
+    s = x0s.shape[0] // n
+    return x0s[r * s:(r + 1) * s], seed * n + r
+
+
+def sample_hmc_sharded(logprob: LogProb, x0s: Tensor, mesh,
+                       n_samples: int, **kwargs) -> HMCResult:
+    """``sample_hmc`` with the chains over all ranks of the mesh flattened
+    (``shard_chains``); x0s holds every chain on every rank.  Each rank runs
+    its shard batched; one all-gather at the end gives every rank the
+    whole ``HMCResult`` in chain order."""
+    from sympgpr_tpu_torch.distributed.init import all_gather_rows
+
+    x0, seed = shard_chains(x0s, mesh, int(kwargs.pop("seed", 0)))
+    res = sample_hmc(logprob, x0, n_samples, seed=seed, **kwargs)
+    return HMCResult(*all_gather_rows(res, mesh))
 
 
 def nll_logprob(kernel: Kernel, X: Tensor, z: Tensor,

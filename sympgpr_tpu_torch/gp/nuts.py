@@ -19,7 +19,8 @@ j = 1..ctz(n), whose left edges sit at the contiguous slot range
 every chain, so the slots are host integers.
 
 A transition is a pure function of its state and its draws
-(``NUTSDraws``); ``sample_nuts_sharded`` is not ported.
+(``NUTSDraws``); ``sample_nuts_sharded`` deals the chains over the ranks of
+a ``torch.distributed`` mesh.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ from typing import NamedTuple
 
 import torch
 
-from sympgpr_tpu_torch.gp.hmc import LogProb, leapfrog, run_chains
+from sympgpr_tpu_torch.gp.hmc import LogProb, leapfrog, run_chains, \
+    shard_chains
 
 Tensor = torch.Tensor
 
@@ -247,3 +249,16 @@ def sample_nuts(
         adapt_step_size=adapt_step_size, target_accept=target_accept)
     return NUTSResult(xs, lps, alphas.mean(1), depths.mean(1),
                       divs.sum(1))
+
+
+def sample_nuts_sharded(logprob: LogProb, x0s: Tensor, mesh, n_samples: int,
+                        **kwargs) -> NUTSResult:
+    """``sample_nuts`` with the chains over all ranks of the mesh flattened
+    (``hmc.shard_chains``); no communication but one all-gather at the
+    end, which gives every rank the whole ``NUTSResult`` in chain
+    order."""
+    from sympgpr_tpu_torch.distributed.init import all_gather_rows
+
+    x0, seed = shard_chains(x0s, mesh, int(kwargs.pop("seed", 0)))
+    res = sample_nuts(logprob, x0, n_samples, seed=seed, **kwargs)
+    return NUTSResult(*all_gather_rows(res, mesh))

@@ -20,14 +20,19 @@ the CPU):
   deployment rollout of the trained model through the rollout kernel.
 
 ``rollout_sweep`` times the rollout kernel over training-set sizes on
-synthetic models.  The JAX package's chained in-jit scans (a TPU timing
+synthetic models.  ``run_distributed`` trains the same synthetic problem
+block-cyclically over the ranks of ``torch.distributed``
+(``distributed/large.py::fit_large``).  The JAX package's chained in-jit scans (a TPU timing
 workaround) and its TPU peak probes are not ported: every timed call is
 one eager call, and ``measure`` returns times and work counts, not shares
 of a peak.
 
 Run: ``python -m sympgpr_tpu_torch bench --large-n --n 4096 --device
 cuda``, ``python -m sympgpr_tpu_torch bench --rollout-sweep --device
-cuda`` or ``python -m sympgpr_tpu_torch run large_n --device cuda``.
+cuda`` or ``python -m sympgpr_tpu_torch run large_n --device cuda``; the
+distributed fit: ``python -m sympgpr_tpu_torch run large_n --distributed
+--device cuda`` (one rank) or ``python -m torch.distributed.run
+--nproc-per-node <gpus> -m sympgpr_tpu_torch run large_n --distributed``.
 """
 
 from __future__ import annotations
@@ -419,3 +424,97 @@ def measure(N: int = 4096, reps: int = 8, dtype: torch.dtype = torch.float32,
         "nll_decreased": bool(nll_last < nll_first),
         **card,
     }
+
+
+# the JAX package's run_distributed settings
+DIST_X0 = (-0.4, -0.4, 0.3)
+
+
+def run_distributed(N: int = 1024, steps: int = 20, block: int = 64,
+                    lr: float = 5e-2, sig2n: float = 1e-2,
+                    save: str | None = None, parity_limit: int = 2048, *,
+                    device: torch.device | str = "cuda") -> dict:
+    """Distributed large-N training end to end: block-cyclic build ->
+    distributed Cholesky -> Adam on forward-mode gradients -> distributed
+    alpha -> checkpoint -> parity against the dense solve at N <=
+    ``parity_limit``.  Every rank calls it and returns the same summary.
+
+    Runs on the process group that is up (under ``python -m
+    torch.distributed.run``, the launcher's), else starts a world of one
+    rank on ``device`` (``distributed/init.py::initialize``; NCCL on the
+    card, gloo on the CPU) and ends it after.  The mesh is every rank on
+    one ``kp`` axis.  float64 on the CPU, float32 on the card, as the JAX
+    package.  The summary has the JAX keys; ``mesh`` names the backend.
+    ``t_train_s`` is the whole fit (the Adam loop and the distributed
+    alpha); the fit runs once, so ``t_train_warm_s`` is the Adam loop less
+    its first step, which carries the process's one-off costs (cuBLAS and
+    cuSOLVER handles, the allocator's growth, NCCL's first collective).
+    The checkpoint is written by rank 0 through ``gp/model.py::
+    save_models`` and read back on every rank.
+    """
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from sympgpr_tpu_torch.distributed import init as dinit
+    from sympgpr_tpu_torch.distributed.large import fit_large
+    from sympgpr_tpu_torch.gp.covariance import build_K_fast
+    from sympgpr_tpu_torch.gp.model import load_models, save_models
+
+    started = not dist.is_initialized()
+    device = dinit.initialize(device)
+    try:
+        D = dist.get_world_size()
+        mesh = init_device_mesh(device.type, (D,), mesh_dim_names=("kp",))
+        dtype = torch.float64 if device.type == "cpu" else torch.float32
+        X, z = synthetic_training_set(N, dtype, device=device)
+        timings: dict = {}
+        t0 = time.perf_counter()
+        model, hist = fit_large(PER_SE, mesh, X, z, sig2n, DIST_X0,
+                                steps=steps, lr=lr, block=block,
+                                timings=timings)
+        t_train = time.perf_counter() - t0
+
+        path = [save]
+        if save is None and dist.get_rank() == 0:
+            path = [os.path.join(tempfile.mkdtemp(), "large_n_fit.npz")]
+        dist.broadcast_object_list(path, src=0)  # rank 0's path
+        path = path[0]
+        if dist.get_rank() == 0:
+            save_models(path, model)
+        dist.barrier()
+        model2, _, _ = load_models(path, device)
+        assert torch.equal(model2.alpha, model.alpha)
+
+        out = {
+            "N": N,
+            "devices": D,
+            "mesh": dist.get_backend(),
+            "dtype": str(dtype).removeprefix("torch."),
+            "steps": steps,
+            "nll_first": float(hist[0]),
+            "nll_last": float(hist[-1]),
+            "nll_decreased": bool(hist[-1] < hist[0]),
+            "hyp": model.params.tolist(),
+            "sig": float(model.sig),
+            "t_train_s": t_train,
+            "t_train_warm_s": timings["train_warm_s"],
+            "per_device_K_bytes": (2 * N) ** 2 // D * X.element_size(),
+            "checkpoint": path,
+        }
+        if N <= parity_limit:
+            # dense parity: the same hyperparameters, a dense solve
+            K = build_K_fast(PER_SE, X, X, model.params, model.sig)
+            Ky = K + model.sig2n * torch.eye(2 * N, dtype=dtype,
+                                             device=device)
+            a_dense = torch.linalg.solve(Ky, z)
+            scale = float(a_dense.abs().max())
+            out["alpha_vs_dense_rel"] = float(
+                (model.alpha - a_dense).abs().max()) / scale
+            out["train_mse"] = float(((K @ model.alpha - z) ** 2).mean())
+        return out
+    finally:
+        if started:
+            dinit.shutdown()

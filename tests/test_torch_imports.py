@@ -122,9 +122,28 @@ def test_surface_modules_import_without_jax():
     assert r.returncode == 0, r.stderr
 
 
+def test_distributed_modules_import_without_jax():
+    """The distributed slice's modules by name: the process group and
+    meshes, the block-cyclic fit, the sharding, the distributed Cholesky."""
+    code = (
+        "import importlib\n"
+        "for n in ('distributed', 'distributed.init', 'distributed.large',\n"
+        "          'distributed.sharded', 'linalg.cholesky'):\n"
+        "    importlib.import_module('sympgpr_tpu_torch.' + n)\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in\n"
+        "            ('jax', 'sympgpr_tpu') and sys.modules[m] is not None]\n"
+        "from sympgpr_tpu_torch.distributed import large, sharded\n"
+        "from sympgpr_tpu_torch.workloads import large_n\n"
+        "assert hasattr(large, 'sharded_nll_large_value_and_grad')\n"
+        "assert hasattr(sharded, 'rollout_in_kernel_sharded')\n"
+        "assert hasattr(large_n, 'run_distributed')\n")
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+
+
 # the port's top-level names beyond the JAX package's
 PORT_ONLY = {"nll_batched", "models_from_arrays", "fit_batch_adam",
-             "minimize_adam", "sample_nuts"}
+             "minimize_adam", "sample_nuts", "sample_nuts_sharded"}
 
 
 def _public(pkg) -> set[str]:
@@ -135,13 +154,12 @@ def _public(pkg) -> set[str]:
 
 
 def test_exports_are_jax_names():
-    """The port exports every name of ``sympgpr_tpu`` but the sharded
-    sampler, which waits for distribution, and its own extras."""
+    """The port exports every name of ``sympgpr_tpu`` and its own
+    extras."""
     import sympgpr_tpu
     import sympgpr_tpu_torch
 
-    assert (_public(sympgpr_tpu_torch) - PORT_ONLY
-            == _public(sympgpr_tpu) - {"sample_hmc_sharded"})
+    assert _public(sympgpr_tpu_torch) - PORT_ONLY == _public(sympgpr_tpu)
 
 
 def test_cli_without_jax():
