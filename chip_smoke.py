@@ -26,6 +26,21 @@ per source, all at once) and drives the main paths on the card:
   mod_p / pdiff against the plain version on these models, shows that its
   gates fail two wrong trajectories, and times each mode at 32768 x 1000
   (N=20) and at 30 x 200 (N=4096);
+* ``split_modes_kernel_vs_plain``: the rollout kernel's Split instances
+  of the explicit update, Algorithm 2 and mod_p / pdiff
+  (``csrc/rollout_split_modes.cu``), each on two or four sub-maps (the
+  standard map's fits beside fits at k = 1.5, standard_map_large's model
+  beside its 2 pi-shifted twin, the Split tokamak's four sub-maps with
+  pdiff and the loss at the new q) and on one map checked at the new q,
+  driven through ``rollout_model`` and held against the plain version
+  (float64 one step from each of 200 rows, float32 within 3x the plain
+  version's error), two wrong kernels that the gates must fail (sub-map 0
+  on every step, pdiff after the new q's NaN), timed at 32768 x 1000
+  (N=20) beside the one-map instances;
+* ``bench_main``: ``python -m sympgpr_tpu_torch bench --device cuda`` (the
+  headline benchmark: the N=80 fit, the CPU baseline, 30 x 10,000 and
+  32768 x 1000 through the rollout kernel, the large-N stages cut to
+  N=1024, NUTS) in a process of its own, its headline last;
 * the perturbed pendulum and Henon-Heiles (``pert_henon_main``:
   ``pert_pendulum`` and ``henon_heiles`` at RESULTS.md's configurations,
   30 x 100 and 37 x 500, through the rollout kernel's periodic instance
@@ -102,9 +117,12 @@ import torch
 from sympgpr_tpu_torch import profiling
 from sympgpr_tpu_torch.ops import rollout_check as rc
 
-KERNEL_SOURCE = "sympgpr_tpu_torch/csrc/rollout_step.cu"
+# the rollout kernel's template; rollout_step.cu and rollout_split_modes.cu
+# instantiate it
+KERNEL_SOURCE = "sympgpr_tpu_torch/csrc/rollout_kernel.cuh"
 REPLACES = "sympgpr_tpu/ops/pallas_step.py:259"  # def _rollout_kernel
-LIBRARIES = ("rollout_step", "cov_blocks", "tri_matmul")
+LIBRARIES = ("rollout_step", "rollout_split_modes", "cov_blocks",
+             "tri_matmul")
 BENCH_ORBITS = 32768  # the orbit-batched size of the JAX package's bench
 NM = 1000
 
@@ -310,9 +328,14 @@ def phase_build() -> None:
 
     from sympgpr_tpu_torch.ops import _build
 
+    def timed_build(name: str) -> float:
+        t = time.perf_counter()
+        _build.build(name)
+        return time.perf_counter() - t
+
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(LIBRARIES)) as ex:  # one nvcc per source
-        list(ex.map(_build.build, LIBRARIES))
+        nvcc_s = dict(zip(LIBRARIES, ex.map(timed_build, LIBRARIES)))
     for name in LIBRARIES:
         _build.load(name)
     ptxas = {}  # per library: kernel (mangled) -> registers, smem, spills
@@ -326,7 +349,8 @@ def phase_build() -> None:
             elif kernel and ("registers" in ln or "spill" in ln):
                 entries[kernel].append(ln.split(": ", 1)[-1].strip())
         ptxas[name] = {k: "; ".join(v) for k, v in entries.items()}
-    emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
+    emit("build", seconds=time.perf_counter() - t0, nvcc_s=nvcc_s,
+         instances={k: len(v) for k, v in ptxas.items()}, ptxas=ptxas)
 
 
 def phase_main_kernel(dev):
@@ -638,10 +662,13 @@ def phase_split_kernel_vs_plain(dev, models):
     q0, p0 = _ics(dev, torch.float32, cfg=cfg)
     Qk, Pk = cs.rollout_in_kernel(pm32, q0, p0, NM_SPLIT, **kw)
     sync()
-    Qr, Pr = cs.rollout_reference(pm32, q0, p0, NM_SPLIT, **kw)
-    plain_ms = _time(lambda: cs.rollout_reference(pm32, q0, p0, NM_SPLIT,
-                                                  **kw), reps=1,
-                     warmup=False)
+    plain = {}  # the plain version's one run, timed (18-20 s)
+
+    def plain_run():
+        plain["traj"] = cs.rollout_reference(pm32, q0, p0, NM_SPLIT, **kw)
+
+    plain_ms = _time(plain_run, reps=1, warmup=False)
+    Qr, Pr = plain["traj"]
     err32 = max(rc.max_abs_diff(Qk[1:3], Qr[1:3]),
                 rc.max_abs_diff(Pk[1:3], Pr[1:3]))
     # the energy on the sections (every 4th row), the lost orbits at the end
@@ -1504,19 +1531,14 @@ def phase_stdmap_large(dev):
 
 def _one_step_along(pm, traj, kw):
     """The kernel's one step (8 Newton iterations) from each of the plain
-    trajectory's rows 0 .. nm - 2 (one launch over all of them as orbits)
-    against the plain trajectory's next rows: the largest difference in
-    Q, P and, with pdiff, the step's unwrapped increment."""
+    trajectory's rows 0 .. nm - 2 (one launch over all of them as orbits,
+    one for each sub-map of a Split model) against the plain trajectory's
+    next rows: the largest difference in Q, P and, with pdiff, the step's
+    unwrapped increment (``rc.step_err``)."""
     from sympgpr_tpu_torch.ops import cuda_step as cs
 
-    q, p = (t[:-1].reshape(-1).contiguous() for t in traj[:2])
-    got = cs.rollout_in_kernel(pm, q, p, 2, iters=8, **kw)
-    errs = [rc.max_abs_diff(g[1], t[1:].reshape(-1), per)
-            for g, t, per in zip(got[:2], traj[:2], rc.periods(pm, 2))]
-    if len(traj) == 3:  # pdiff's increment of each step
-        errs.append(rc.max_abs_diff(got[2][1] - got[2][0],
-                                    (traj[2][1:] - traj[2][:-1]).reshape(-1)))
-    return max(errs)
+    return rc.step_err(lambda *a, **k: cs.rollout_in_kernel(*a, iters=8, **k),
+                       pm, traj, kw)
 
 
 def _large_mode_check(dev, sgp, aux, ics) -> dict:
@@ -1739,6 +1761,393 @@ def phase_modes_kernel_vs_plain(dev, stdmap, pendulum, large):
         assert e > gate, (k, e, gate)
     assert len(wrong) == 10, wrong
     return res, timing
+
+
+# --- the Split instances of the explicit, Algorithm-2 and mod_p modes -------
+
+SPLIT_MODES_ROWS = 200   # the gates' rows (30 orbits)
+TWIN_K = 1.5  # the standard map's second fit: a map of another kick
+
+
+def _shifted_twin(model):
+    """The model with its training angles moved by 2 pi: per_se is
+    2 pi-periodic in q, so the same map, from other columns."""
+    import dataclasses
+
+    shift = torch.tensor([2 * math.pi, 0.0], dtype=model.X.dtype,
+                         device=model.X.device)
+    return dataclasses.replace(model, X=model.X + shift)
+
+
+def phase_split_modes_kernel_vs_plain(dev, stdmap, sm_large, split_models,
+                                      one_map_timing):
+    """The kernel's Split instances of the explicit update, Algorithm 2
+    and mod_p / pdiff (csrc/rollout_split_modes.cu) on the models the
+    smoke has fitted, each as a Split model of two or four sub-maps and
+    as one map checked at the new q: the standard map's per_se fit (mod_p
+    / pdiff, and its explicit product update) and sum_per_se fit
+    (Algorithm 2) beside fits at k = 1.5, standard_map_large's N = 4096
+    model beside its 2 pi-shifted twin, and the Split tokamak's four
+    CMA-ES sub-maps with pdiff and the loss at the new q, on ICs near r =
+    0.5.  Each layout is driven once through ``rollout_model`` (float32,
+    the workloads' deployment jitter) with the launch counts zeroed just
+    before.  Against the plain version: float64 one kernel step from each
+    of the plain trajectory's 200 rows, by the sub-map that made the next
+    row (``rc.step_err``), within 1e-12, NaN patterns equal; float32 within 3x the plain version's own error against
+    float64 (``rc.f32_vs_f64``).  Two sub-maps of 4096 points are float32
+    only: their float64 rows overflow a block's shared memory, and the
+    kernel refuses them (float64 Split models take up to ~2300 points a
+    sub-map at M = 2, ~1000 at M = 4).  Two wrong kernels the gates must fail:
+    sub-map 0 on every step, and pdiff taken after the new q's NaN.  Two
+    copies of one sub-map through the Split instance against the one-map
+    instance.  Timings at 32768 x 1000, N = 20, beside the one-map
+    instance of the same mode (``modes_kernel_vs_plain``), each bound by
+    one sub-map's real training and aux points; the plain version of the
+    two-sub-map layouts once, without a warm-up call."""
+    from sympgpr_tpu_torch.ops import cuda_step as cs
+    from sympgpr_tpu_torch.systems import tokamak as tk
+    from sympgpr_tpu_torch.systems.standard_map import StandardMapConfig
+    from sympgpr_tpu_torch.workloads import standard_map as wsm
+
+    two_pi = 2 * math.pi
+    t0 = time.perf_counter()
+    twin = {m: wsm.run(StandardMapConfig(k=TWIN_K), method=m,
+                       backend="kernel", device=dev)["models"]
+            for m in ("implicit", "explicit")}
+    twin_fit_s = time.perf_counter() - t0
+    (s_imp, a_imp), (s_sum, _) = stdmap["implicit"], stdmap["explicit"]
+    (t_imp, ta_imp), (t_sum, _) = twin["implicit"], twin["explicit"]
+    s_large, a_large = sm_large
+    sgps, auxes = split_models
+    sm_ics = wsm.initial_conditions(StandardMapConfig(), dev)
+    r0 = np.repeat(np.linspace(0.44, 0.5, 8), 8)
+    th0 = np.tile(np.linspace(0.0, two_pi, 8, endpoint=False), 8)
+    pth, qb = tk.ics_to_pth(r0, th0, dev)
+    tok_ics = (qb, pth * _split_cfg().momentum_scale)
+    # case: sub-maps, aux models, mod_q, mod_p, keywords, deployment
+    # jitter, ICs, float64 gate
+    cases = {
+        "mod_p_pdiff": ([s_imp, t_imp], [a_imp, ta_imp], two_pi, two_pi,
+                        {}, 1e-5, sm_ics, ATOL_F64_STEP),
+        "explicit_product": ([s_imp, t_imp], [None, None], two_pi, two_pi,
+                             dict(explicit=True), 1e-5, sm_ics,
+                             ATOL_F64_STEP),
+        "sum": ([s_sum, t_sum], [None, None], None, two_pi, {}, 1e-5,
+                sm_ics, ATOL_F64_STEP),
+        "n4096_mod_p_pdiff": ([s_large, _shifted_twin(s_large)],
+                              [a_large, _shifted_twin(a_large)], two_pi,
+                              two_pi, {}, None, sm_ics, ATOL_F64_STEP),
+        "tokamak_split_pdiff": (list(sgps), list(auxes), two_pi, None,
+                                dict(loss_check=True, loss_at_new_q=True),
+                                1e-3, tok_ics, ATOL_F64_STEP),
+    }
+    layouts = {}
+    for name, (ss, aa, mod_q, mod_p, kw, jit, ics, gate) in cases.items():
+        kw = dict(kw, track_pdiff=True)
+        layouts[f"{name}_m{len(ss)}"] = (ss, aa, mod_q, mod_p, kw, jit, ics,
+                                         gate)
+        layouts[f"{name}_m1_new_q"] = (ss[:1], aa[:1], mod_q, mod_p,
+                                       dict(kw, loss_check=True,
+                                            loss_at_new_q=True), jit, ics,
+                                       gate)
+
+    # the main path: each layout through the user's entry point, counted
+    profiling.launch_counts(zero=True)
+    driven = {}
+    for name, (ss, aa, mod_q, mod_p, kw, jit, (q0, p0), _) in \
+            layouts.items():
+        out = cs.rollout_model(ss, aa, q0, p0, SPLIT_MODES_ROWS, mod_q=mod_q,
+                               mod_p=mod_p, iters=8, deployment_jitter=jit,
+                               **kw)
+        driven[name] = dict(arity=len(out), shape=list(out[0].shape),
+                            dtype=str(out[0].dtype),
+                            finite_rows_1=bool(torch.isfinite(
+                                out[2][1]).any()))
+    sync()
+    launches = profiling.launch_counts()["rollout"]
+
+    res, wrong, packs = {}, {}, {}
+    for name, (ss, aa, mod_q, mod_p, kw, jit, (q0, p0), gate) in \
+            layouts.items():
+        if jit is not None:
+            ss = [s.for_deployment(jit) for s in ss]
+            aa = [a.for_deployment(jit) if a is not None else None
+                  for a in aa]
+        r = res[name] = {"n_maps": len(ss), "f64_gate": gate}
+        for dtype in (torch.float64, torch.float32):
+            pm = cs.pack_models_split(ss, aa, mod_q=mod_q, mod_p=mod_p,
+                                      dtype=dtype)
+            r["library"] = cs._library(pm, kw.get("loss_at_new_q", False),
+                                       kw.get("explicit", False), True)
+            q, p = q0.to(dtype).contiguous(), p0.to(dtype).contiguous()
+            if dtype == torch.float64 and name == "n4096_mod_p_pdiff_m2":
+                # two sub-maps' rows of 4096 float64 points overflow a
+                # block's shared memory: the kernel refuses them
+                try:
+                    cs.rollout_in_kernel(pm, q, p, 2, iters=8, **kw)
+                except ValueError as e:
+                    r["f64_refused"] = str(e)
+                continue
+            got = cs.rollout_in_kernel(pm, q, p, SPLIT_MODES_ROWS, iters=8,
+                                       **kw)
+            sync()
+            ref = cs.rollout_reference(pm, q, p, SPLIT_MODES_ROWS, iters=8,
+                                       **kw)
+            lost = torch.isnan(ref[1])
+            r["lost_plain_" + str(dtype)[6:]] = int(lost[-1].sum())
+            if dtype == torch.float64:
+                packs[name] = (ss, aa, q, p)
+                r["f64_step_err_200_rows"] = _one_step_along(pm, ref, kw)
+                r["f64_nan_pattern_equal"] = all(
+                    torch.equal(torch.isnan(g), torch.isnan(t))
+                    for g, t in zip(got, ref))
+                # pdiff in the row an orbit is lost in: finite at the new
+                # q, NaN at the old
+                gone = lost[1:] & ~lost[:-1]
+                r["pdiff_finite_in_lost_rows"] = int(
+                    torch.isfinite(got[2][1:][gone]).sum())
+                r["orbits_lost_in_run"] = int(gone.sum())
+                if len(ss) > 1 and name.startswith(("mod_p", "explicit",
+                                                    "sum", "tokamak")):
+                    first = cs.pack_models_split(
+                        [ss[0]] * len(ss), [aa[0]] * len(ss), mod_q=mod_q,
+                        mod_p=mod_p, dtype=dtype)
+                    wrong[f"submap0_f64_{name}"] = (
+                        _one_step_along(first, ref, kw), gate)
+                if kw.get("loss_at_new_q") and r["orbits_lost_in_run"]:
+                    late = torch.where(lost, torch.nan, ref[2])
+                    wrong[f"pdiff_after_new_q_nan_f64_{name}"] = (
+                        rc.max_abs_diff(got[2], late), gate)
+                continue
+            f32 = rc.f32_vs_f64(pm, q, p, kw, got, ref)
+            f32.pop("err")
+            r.update({f"f32_{k}": v for k, v in f32.items()})
+
+    # two copies of one sub-map through the Split instance against the
+    # one-map instance (float64, the rows of the gates)
+    copies = {}
+    for name in ("mod_p_pdiff_m2", "explicit_product_m2", "sum_m2"):
+        ss, aa, q, p = packs[name]
+        mod_q, mod_p, kw = layouts[name][2:5]
+        one, two = (cs.pack_models_split(ss[:1] * n, aa[:1] * n,
+                                         mod_q=mod_q, mod_p=mod_p,
+                                         dtype=torch.float64)
+                    for n in (1, 2))
+        a1, a2 = (cs.rollout_in_kernel(pm, q, p, SPLIT_MODES_ROWS, iters=8,
+                                       **kw) for pm in (one, two))
+        sync()
+        explicit = kw.get("explicit", False)
+        copies[name] = dict(
+            max_abs_diff=max(rc.max_abs_diff(x, y) for x, y in zip(a1, a2)),
+            bits_equal=all(torch.equal(x, y) for x, y in zip(a1, a2)),
+            libraries=[cs._library(pm, False, explicit, True)
+                       for pm in (one, two)])
+
+    # timings: 32768 x 1000 at N = 20, float32
+    timing = {}
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    reps = -(-MODES_BATCH // 30)
+    q = sm_ics[0].repeat(reps)[:MODES_BATCH].float().contiguous()
+    p = sm_ics[1].repeat(reps)[:MODES_BATCH].float().contiguous()
+    for name, mode, one_map in (
+            ("mod_p_pdiff", "implicit", "implicit_mod_p_pdiff_32768x1000_n20"),
+            ("explicit_product", "explicit",
+             "explicit_product_32768x1000_n20"),
+            ("sum", "sum", "sum_32768x1000_n20")):
+        for layout in (f"{name}_m2", f"{name}_m1_new_q"):
+            ss, aa, mod_q, mod_p, kw, jit = layouts[layout][:6]
+            pm = cs.pack_models_split(
+                [s.for_deployment(jit) for s in ss],
+                [a.for_deployment(jit) if a is not None else None
+                 for a in aa], mod_q=mod_q, mod_p=mod_p)
+            ms = _time(lambda: cs.rollout_in_kernel(pm, q, p, MODES_STEPS,
+                                                    iters=8, **kw))
+            # a step runs one sub-map of its real size (pm.ns is padded)
+            b = rollout_bound(MODES_BATCH, MODES_STEPS,
+                              max(s.n_train for s in ss),
+                              max((a.X.shape[0] for a in aa if a is not None),
+                                  default=0),
+                              4, iters=8, n_maps=len(ss), mode=mode,
+                              pdiff=True)
+            t = timing[f"{layout}_32768x1000_n20"] = dict(
+                ms=ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                bound_share=b["bound_ms"] / ms,
+                one_map_instance_ms=one_map_timing[one_map]["ms"],
+                geometry=cs.launch_geometry(
+                    MODES_BATCH, pm.ns, pm.nas, torch.float32, sm_count,
+                    n_maps=pm.n_maps,
+                    loss_at_new_q=kw.get("loss_at_new_q", False)).__dict__)
+            if layout.endswith("_m2"):  # one call: 0.6-4 s each
+                t["plain_ms"] = _time(lambda: cs.rollout_reference(
+                    pm, q, p, MODES_STEPS, iters=8, **kw), reps=1,
+                    warmup=False)
+    emit("split_modes_kernel_vs_plain", launches=launches, driven=driven,
+         cases=res, wrong_kernels=wrong, copies=copies, timing=timing,
+         twin_fit_s=twin_fit_s, f32_noise_factor=rc.NOISE_FACTOR)
+    assert launches == len(layouts), launches
+    for name, d in driven.items():
+        assert d["arity"] == 3 and d["dtype"] == "torch.float32", (name, d)
+        assert d["shape"][0] == SPLIT_MODES_ROWS and d["finite_rows_1"], d
+    for name, r in res.items():
+        assert r["library"] == "rollout_split_modes", (name, r)
+        if name == "n4096_mod_p_pdiff_m2":
+            assert "shared memory" in r.get("f64_refused", ""), (name, r)
+        else:
+            assert r["f64_nan_pattern_equal"], (name, r)
+            assert r["f64_step_err_200_rows"] <= r["f64_gate"], (name, r)
+        assert r["f32_err_kernel"] <= r["f32_err_bound"], (name, r)
+        assert r["f32_residual_kernel"] <= r["f32_residual_bound"], (name, r)
+        if not name.startswith("tokamak"):  # no orbit near the boundary
+            assert r["f32_nan_pattern_equal"], (name, r)
+    # point 3 on the card: lost at the new q, pdiff finite in that row
+    for name in ("tokamak_split_pdiff_m4", "tokamak_split_pdiff_m1_new_q"):
+        r = res[name]
+        assert r["orbits_lost_in_run"] > 0, (name, r)
+        assert r["pdiff_finite_in_lost_rows"] == r["orbits_lost_in_run"], r
+    for k, (e, gate) in wrong.items():
+        assert e > gate, (k, e, gate)
+    assert len(wrong) == 6, wrong
+    for name, c in copies.items():
+        assert c["max_abs_diff"] <= ATOL_F64_STEP, (name, c)
+        assert c["libraries"] == ["rollout_step", "rollout_split_modes"], c
+    return launches, timing
+
+
+# --- the headline benchmark (python -m sympgpr_tpu_torch bench) ------------
+
+# the JAX package's bench.py:333-352, the detail's keys
+BENCH_DETAIL_KEYS = [
+    "device", "dtype", "fit_s", "cpu_baseline_steps_per_s",
+    "ref_size_steps_per_s", "ref_size_speedup", "lost_orbits_10k",
+    "rollout_mxu_reduce_steps_per_s", "large_n", "tokamak_large",
+    "nuts_samples_per_s", "nuts_context", "compile_cache_dir",
+    "total_bench_s"]
+# large_n_main, large_main and posterior_parity run these stages at full
+# size: the benchmark's own are cut to N = 1024 (tokamak_large: 10 Adam
+# steps) through the JAX file's own variables; its rollouts stay full
+BENCH_ENV = {"SYMPGPR_BENCH_LARGE_N": "1024",
+             "SYMPGPR_BENCH_TOK_LARGE_N": "1024",
+             "SYMPGPR_BENCH_TOK_LARGE_STEPS": "10"}
+BENCH_TIMEOUT_S = 600
+BENCH_CHECK_ROWS = 300    # the 10,000-step run's first rows, against plain
+BENCH_CHECK_STRIDE = 10   # one step from every 10th row of the 10,000
+
+
+def _bench_ref_size_check(dev, models) -> dict:
+    """The benchmark's reference size in this process: ``bench.kernel_
+    rollouts`` on the smoke's N = 80 maps (``main_kernel``'s fit of the
+    benchmark's configuration), the launch counts zeroed just before and
+    read just after, and its one 30 x 10,000 launch, which no other phase
+    makes, held against the plain version: the first 300 rows within 3x
+    the plain version's error against float64 (``rc.f32_vs_f64``), and,
+    at every 10th row of the 10,000, the kernel's next row against one
+    float64 step from that row within 3x the plain version's float32 step
+    from it (``rc.residual``), NaN patterns equal."""
+    from sympgpr_tpu_torch import bench
+    from sympgpr_tpu_torch.ops import cuda_step as cs
+    from sympgpr_tpu_torch.systems import tokamak as tk
+
+    (sgp,), (aux,) = models
+    q0, p0 = bench.initial_conditions(tk.TokamakConfig(), dev)
+    profiling.launch_counts(zero=True)
+    ref_rate, (Q, P), rate = bench.kernel_rollouts(sgp, aux, q0, p0)
+    sync()
+    launches = profiling.launch_counts()["rollout"]
+    # the pack kernel_rollouts launches
+    pm = cs.pack_models(sgp.for_deployment(1e-3), aux.for_deployment(1e-3),
+                        mod_q=2 * math.pi)
+    kw = dict(loss_check=True)
+    q, p = q0.float().contiguous(), p0.float().contiguous()
+    n = BENCH_CHECK_ROWS
+    plain = cs.rollout_reference(pm, q, p, n, **kw)
+    head = rc.f32_vs_f64(pm, q, p, kw, (Q[:n], P[:n]), plain)
+    head.pop("err")
+    rows = torch.arange(0, Q.shape[0] - 1, BENCH_CHECK_STRIDE, device=dev)
+    qs, ps = (t[rows].reshape(-1).contiguous() for t in (Q, P))
+    nxt = [t[rows + 1].reshape(-1) for t in (Q, P)]
+    one = cs.rollout_reference(pm, qs, ps, 2, **kw)
+    spread = dict(
+        rows=len(rows), finite_rows=int(torch.isfinite(ps).sum()),
+        nan_pattern_equal=all(torch.equal(torch.isnan(a), torch.isnan(b[1]))
+                              for a, b in zip(nxt, one)),
+        residual_kernel=rc.residual(
+            pm, tuple(torch.stack([x, y]) for x, y in zip((qs, ps), nxt)),
+            kw),
+        residual_plain=rc.residual(
+            pm, tuple(torch.stack([x, y[1]]) for x, y in zip((qs, ps), one)),
+            kw))
+    spread["residual_bound"] = rc.NOISE_FACTOR * spread["residual_plain"]
+    return dict(launches=launches, steps=list(Q.shape),
+                ref_size_steps_per_s=ref_rate, throughput_steps_per_s=rate,
+                lost=int(torch.isnan(P[-1]).sum()), first_rows=head,
+                every_10th_row=spread)
+
+
+def phase_bench_main(dev, smi: str, models) -> dict:
+    """``python -m sympgpr_tpu_torch bench --device cuda`` in a process of
+    its own (the kernels built by ``build``): its last line is the headline
+    with a finite value above 0 and a vs_baseline, the line before it the
+    detail with the JAX file's keys, float32 on this card, ``lost_orbits_
+    10k`` within the reference size's gate, the large-N stages and NUTS
+    run; its standard error's last line gives the run's kernel launches
+    (counted from 0 in that process) and the reference-size run's mean
+    Eosc.  Then the reference size's launch in this process, held against
+    the plain version (``_bench_ref_size_check``); its launches join the
+    process's."""
+    import os
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "sympgpr_tpu_torch", "bench", "--device",
+         "cuda"], capture_output=True, text=True, timeout=BENCH_TIMEOUT_S,
+        env=dict(os.environ, **BENCH_ENV))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"bench exited {proc.returncode}:\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.strip().splitlines()
+    head = json.loads(lines[-1])
+    detail = json.loads(lines[-2])["detail"]
+    diag = json.loads(proc.stderr.strip().splitlines()[-1])
+    large, tok = detail["large_n"], detail["tokamak_large"]
+    emit("bench_main", wall_s=wall, headline=head, env=BENCH_ENV,
+         launches=diag["launches"],
+         ref_size_mean_Eosc=diag["ref_size_mean_Eosc"],
+         detail={k: v for k, v in detail.items()
+                 if k not in ("large_n", "tokamak_large")},
+         large_n={k: large[k] for k in ("N", "build_s", "chol_s",
+                                       "train_step_s", "launches")
+                  if k in large},
+         tokamak_large={k: tok[k] for k in (
+             "N", "fit_s", "gd", "mean_Eosc", "n_lost", "rollout_ms",
+             "rollout_steps_per_s") if k in tok},
+         nvidia_smi=smi)
+    check = _bench_ref_size_check(dev, models)
+    emit("bench_main_ref_size", **check)
+    assert list(head) == ["metric", "value", "unit", "vs_baseline"], head
+    assert head["metric"] == "tokamak_rollout_orbit_steps_per_s", head
+    assert math.isfinite(head["value"]) and head["value"] > 0, head
+    assert math.isfinite(head["vs_baseline"]) and head["vs_baseline"] > 0
+    assert list(detail) == BENCH_DETAIL_KEYS, list(detail)
+    assert detail["dtype"] == "float32", detail["dtype"]
+    assert torch.cuda.get_device_name(0) in detail["device"], detail
+    assert detail["rollout_mxu_reduce_steps_per_s"] is None
+    assert detail["lost_orbits_10k"] <= GATE_LOST, detail
+    assert math.isfinite(diag["ref_size_mean_Eosc"]), diag
+    assert isinstance(large, dict) and isinstance(tok, dict)
+    assert detail["nuts_samples_per_s"] > 0, detail
+    for k, n in diag["launches"].items():
+        assert n > 0, f"bench launched no {k} kernel"
+    f32, spread = check["first_rows"], check["every_10th_row"]
+    assert check["launches"] > 0, check
+    assert check["steps"] == [10_000, 30] and check["lost"] <= GATE_LOST
+    assert f32["nan_pattern_equal"] and spread["nan_pattern_equal"], check
+    assert f32["err_kernel"] <= f32["err_bound"], check
+    assert f32["residual_kernel"] <= f32["residual_bound"], check
+    assert spread["finite_rows"] > 0, check
+    assert spread["residual_kernel"] <= spread["residual_bound"], check
+    return dict(diag["launches"],
+                rollout=diag["launches"]["rollout"] + check["launches"])
 
 
 # --- the perturbed pendulum and Henon-Heiles ---------------------------------
@@ -2602,6 +3011,7 @@ def main() -> None:
     split, split_launches = phase_split_main(dev)
     phase_split_generic(dev, split["models"])
     phase_split_kernel_vs_plain(dev, split["models"])
+    split_models = split["models"]
     split_sets = (torch.stack([s.X for s in split["models"][0]]),
                   torch.stack([s.z for s in split["models"][0]]),
                   _split_cfg().sig2_n)
@@ -2615,7 +3025,11 @@ def main() -> None:
     stdmap, stdmap_launches = phase_stdmap_main(dev)
     pendulum, pendulum_launches = phase_pendulum_main(dev)
     sm_large, sm_large_launches = phase_stdmap_large(dev)
-    phase_modes_kernel_vs_plain(dev, stdmap, pendulum, sm_large)
+    _, modes_timing = phase_modes_kernel_vs_plain(dev, stdmap, pendulum,
+                                                  sm_large)
+    split_modes_launches, _ = phase_split_modes_kernel_vs_plain(
+        dev, stdmap, sm_large, split_models, modes_timing)
+    bench_launches = phase_bench_main(dev, smi, out["models"])
     pert_henon, pert_henon_launches = phase_pert_henon_main(dev)
     phase_pert_henon_kernel_vs_plain(dev, pert_henon)
     phase_posterior_parity(dev)
@@ -2629,7 +3043,8 @@ def main() -> None:
              "launches": launches + split_launches + stdmap_launches
              + pendulum_launches + sm_large_launches["rollout"]
              + pert_henon_launches + adam_launches
-             + large_n_launches["rollout"] + dist_launches,
+             + large_n_launches["rollout"] + dist_launches
+             + split_modes_launches + bench_launches["rollout"],
              "max_abs_err": err32, "ms": ms, "plain_ms": plain_ms,
              "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
              "library_ms": None}]
@@ -2637,7 +3052,8 @@ def main() -> None:
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces,
                      "launches": large_launches[name]
-                     + sm_large_launches[name] + large_n_launches[name],
+                     + sm_large_launches[name] + large_n_launches[name]
+                     + bench_launches[name],
                      **large[name]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

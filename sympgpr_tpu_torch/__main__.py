@@ -19,6 +19,7 @@
   python -m sympgpr_tpu_torch run large_n --distributed --device cuda
   python -m torch.distributed.run --nproc-per-node 4 -m sympgpr_tpu_torch run large_n --distributed
   python -m sympgpr_tpu_torch run pendulum_implicit --backend kernel --plots out/
+  python -m sympgpr_tpu_torch bench --device cuda
   python -m sympgpr_tpu_torch bench --large-n --n 4096 --device cuda
   python -m sympgpr_tpu_torch bench --large-n --distributed --steps 20 --device cuda
   python -m sympgpr_tpu_torch bench --rollout-sweep --device cuda
@@ -37,7 +38,9 @@ training-set sizes (``workloads/large_n.py``); with ``--distributed`` both
 run the block-cyclic fit over the ranks of ``torch.distributed``
 (``large_n.run_distributed``: one rank, or the launcher's, each on
 ``cuda:LOCAL_RANK``; the JSON is printed by rank 0).  All print the JSON
-keys of the JAX CLI.  The plain ``bench`` headline is not ported yet.
+keys of the JAX CLI.  The plain ``bench`` runs the headline benchmark
+(``bench.py``): the detail, then ``tokamak_rollout_orbit_steps_per_s`` as
+the last line.
 
 ``--device`` defaults to ``cuda`` and fails when no GPU is present; pass
 ``--device cpu`` to run on the CPU.
@@ -243,22 +246,24 @@ def cmd_list(args):
 
 
 def cmd_bench(args) -> dict:
-    """``--large-n``: the large-N pipeline's stages at ``--n``
+    """The headline benchmark (``bench.main``: the tokamak fit, the CPU
+    baseline and the orbit rollouts, headline orbit-steps/s last);
+    ``--large-n``: the large-N pipeline's stages at ``--n``
     (``large_n.measure``), headline build + Cholesky GFLOP/s; with
     ``--distributed``, the block-cyclic fit of ``--steps`` Adam steps
     (``large_n.run_distributed``), headline its seconds;
-    ``--rollout-sweep``: the rollout kernel over training-set sizes.  The
-    plain benchmark is not ported and exits."""
-    if not (args.large_n or args.rollout_sweep):
-        sys.exit("bench: the port's headline benchmark is not written yet; "
-                 "run bench --large-n or bench --rollout-sweep")
+    ``--rollout-sweep``: the rollout kernel over training-set sizes."""
     if (args.distributed or args.steps is not None) and not (
             args.large_n and args.distributed):
         sys.exit("bench: --distributed and --steps go with --large-n "
                  "--distributed")
+    device = _device(args.device)
+    if not (args.large_n or args.rollout_sweep):
+        from sympgpr_tpu_torch import bench
+
+        return bench.main(device)
     from sympgpr_tpu_torch.workloads import large_n
 
-    device = _device(args.device)
     if args.distributed:
         detail = large_n.run_distributed(N=args.n, steps=args.steps or 20,
                                          device=device)
@@ -451,7 +456,8 @@ def build_parser() -> argparse.ArgumentParser:
                           help="torch device (default cuda)")
     p_sample.set_defaults(fn=cmd_sample)
 
-    p_bench = sub.add_parser("bench", help="large-N and rollout timings")
+    p_bench = sub.add_parser("bench", help="the headline benchmark, or "
+                             "large-N and rollout timings")
     p_bench.add_argument("--large-n", action="store_true",
                          help="the large-N pipeline's stages")
     p_bench.add_argument("--n", type=int, default=4096,

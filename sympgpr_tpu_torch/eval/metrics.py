@@ -18,12 +18,14 @@ def _nanstd(x: Tensor, dim: int) -> Tensor:
     return torch.sqrt(torch.nanmean((x - m) ** 2, dim=dim))
 
 
-def energy_oscillation(H: Tensor, dim: int = 0) -> Tensor:
-    """std(H)/mean(H) along the time axis; NaN (lost) samples ignored.
-
-    The axis is the keyword ``dim=`` (torch's name), where the JAX
-    package's ``energy_oscillation`` takes ``axis=``; ``axis=`` is not
-    accepted."""
+def energy_oscillation(H: Tensor, dim: int | None = None, *,
+                       axis: int | None = None) -> Tensor:
+    """std(H)/mean(H) along the time axis (0 by default); NaN (lost)
+    samples ignored.  The axis is ``dim=`` (torch's name) or ``axis=``
+    (the JAX package's), not both."""
+    if dim is not None and axis is not None:
+        raise TypeError("energy_oscillation takes dim= or axis=, not both")
+    dim = axis if axis is not None else (dim or 0)
     return _nanstd(H, dim) / torch.nanmean(H, dim=dim)
 
 

@@ -1,19 +1,18 @@
 """Fused rollout of the learned map: the whole nm-step iteration in one CUDA
 launch (PyTorch port of ``sympgpr_tpu/ops/pallas_step.py``).
 
-The kernel (``csrc/rollout_step.cu``) replaces the Pallas kernel
+The kernel (``csrc/rollout_kernel.cuh``) replaces the Pallas kernel
 ``_rollout_kernel``: implicit product kernels (per_se, se_se, per_se_freq)
 with the aux-GP warm start and fixed-iteration Newton, the explicit
 product update, Algorithm 2 for the separable sum kernel sum_per_se, the
-tokamak loss check at the old q (single map) or at the new q (Split), the
-mod_q wrap, the mod_p wrap with unwrapped-momentum (pdiff) tracking, one
-map or Split cycling over ``n_maps`` sub-maps (step i uses sub-map ``(i -
-1) % n_maps`` for row i), float32 or float64.  The explicit update,
-Algorithm 2 and mod_p / pdiff run with one map and the loss check at the
-old q; with Split cycling or the check at the new q they raise
-``NotImplementedError``, as do the Pallas kernel's TPU-only modes
-(compensated sums, MXU reductions), which have no argument here.  Nothing
-falls back.
+tokamak loss check at the old q or at the new q, the mod_q wrap, the mod_p
+wrap with unwrapped-momentum (pdiff) tracking, one map or Split cycling
+over ``n_maps`` sub-maps (step i uses sub-map ``(i - 1) % n_maps`` for row
+i), in any combination, float32 or float64.  The Pallas kernel's TPU-only
+modes (compensated sums, MXU reductions) have no argument here.  Two
+libraries hold the kernel's instances (``_library``): ``rollout_step``
+every one-map instance and the Split implicit one, ``rollout_split_modes``
+the Split instances of the other modes.  Nothing falls back.
 
 ``rollout_in_kernel`` dispatches on the device of its inputs: CPU tensors
 go to the plain PyTorch version ``rollout_reference`` (the fast path of
@@ -51,11 +50,11 @@ SMEM_LIMIT = 232448  # dynamic shared memory one block may use on Hopper
 
 # The launch layout is decided here and only here; the kernel runs the
 # instance it is given and refuses a layout it cannot hold.
-# The kernel's instances (csrc/rollout_step.cu, launch()): the training
-# points a lane holds, a block's threads and the blocks an SM runs at once
-# (its __launch_bounds__, so its register budget).  Each dtype's list runs
-# from the most resident to the least: more warps hide more of the exps'
-# latency.  float64 lanes of more than 8 points take the one-block
+# The kernel's instances (csrc/rollout_kernel.cuh, launch_shapes()): the
+# training points a lane holds, a block's threads and the blocks an SM runs
+# at once (its __launch_bounds__, so its register budget).  Each dtype's
+# list runs from the most resident to the least: more warps hide more of
+# the exps' latency.  float64 lanes of more than 8 points take the one-block
 # instance, too few warps to hide float64's exp and sin/cos chains (32768 x
 # 1000 orbit-steps at N = 80 on an H100: 107 ms at 8 lanes of 10 points,
 # 83 ms at 16 of 5), so the team is widened before that.
@@ -326,26 +325,6 @@ def pack_models_split(sgps: list[SympGP], auxes: list[AuxGP | None],
     )
 
 
-def _check_supported(pm: PackedModels, explicit: bool, track_pdiff: bool,
-                     loss_at_new_q: bool) -> None:
-    """Raise on the modes the kernel does not take: the explicit update,
-    Algorithm 2 (kind 3) and mod_p / pdiff run in the one-map instances
-    only, not with Split cycling or the loss check at the new q."""
-    if not split_instance(pm.n_maps, loss_at_new_q):
-        return
-    modes = []
-    if pm.kind == 3:
-        modes.append(f"kernel {_KIND_NAME[pm.kind]!r} (Algorithm 2)")
-    if explicit:
-        modes.append("the explicit update")
-    if pm.mod_p is not None or track_pdiff:
-        modes.append("mod_p wrap and pdiff tracking")
-    if modes:
-        raise NotImplementedError(
-            "rollout kernel does not cover yet: " + ", ".join(modes)
-            + " with Split cycling or the loss check at the new q")
-
-
 def _tokamak_lost(P: Tensor, q: Tensor) -> Tensor:
     """Loss boundary at angle q: r > 0.5 or P < 0 (r does not depend on
     the toroidal angle)."""
@@ -388,12 +367,14 @@ def rollout_reference(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int,
     with ``iters`` fixed Newton iterations and the aux warm start, or the
     explicit update (``explicit``; always for kind 3, Algorithm 2) without
     aux model; the tokamak loss check at the old q or, with
-    ``loss_at_new_q``, at the new q; the mod_q wrap and, where the models
-    were packed with ``mod_p``, the mod_p wrap.  Returns (Q, P), or (Q, P,
-    D) with ``track_pdiff`` (D the unwrapped momentum, row 0 = p0), each
-    (nm, B).
+    ``loss_at_new_q``, at the new q (of the wrapped P); the mod_q wrap and,
+    where the models were packed with ``mod_p``, the mod_p wrap.  pdiff
+    sums P - p before the wrap and the check at the new q, so an orbit lost
+    at the new q keeps a finite pdiff in that row and turns NaN in the
+    next (at the old q, in the same row), as in the TPU kernel.  Returns
+    (Q, P), or (Q, P, D) with ``track_pdiff`` (D the unwrapped momentum,
+    row 0 = p0), each (nm, B).
     """
-    _check_supported(pm, explicit, track_pdiff, loss_at_new_q)
     cfg = MapConfig(explicit=explicit or pm.kind == 3,
                     mod_q=pm.scal[0, 5] if pm.mod_q is not None else None,
                     mod_p=pm.scal[0, 8] if pm.mod_p is not None else None,
@@ -451,6 +432,19 @@ def _validate(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int,
 _ARGS = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 20 + [ctypes.c_void_p]
 
 
+def _library(pm: PackedModels, loss_at_new_q: bool, explicit: bool,
+             track_pdiff: bool) -> str:
+    """The library that holds the launch's instance: ``rollout_split_modes``
+    for a Split instance (``split_instance``) of the explicit update,
+    Algorithm 2 (kind 3) or the mod_p wrap with pdiff; ``rollout_step``
+    for every other."""
+    other_mode = (explicit or pm.kind == 3 or pm.mod_p is not None
+                  or track_pdiff)
+    return ("rollout_split_modes"
+            if split_instance(pm.n_maps, loss_at_new_q) and other_mode
+            else "rollout_step")
+
+
 def _launch(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int, iters: int,
             loss_check: bool, team: int | None = None,
             loss_at_new_q: bool = False, explicit: bool = False,
@@ -459,12 +453,12 @@ def _launch(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int, iters: int,
     orbit (``launch_geometry`` chooses by default).  Returns (Q, P), or
     (Q, P, D) with ``track_pdiff``."""
     global LAUNCHES
-    _check_supported(pm, explicit, track_pdiff, loss_at_new_q)
     geo = _validate(pm, q0, p0, nm, iters, team, loss_at_new_q)
     dev, dtype = q0.device, q0.dtype
     B = q0.shape[0]
-    sym = "rollout_step_f32" if dtype == torch.float32 else "rollout_step_f64"
-    fn = _build.function("rollout_step", sym, _ARGS)
+    lib = _library(pm, loss_at_new_q, explicit, track_pdiff)
+    sym = f"{lib}_f32" if dtype == torch.float32 else f"{lib}_f64"
+    fn = _build.function(lib, sym, _ARGS)
     Q = torch.empty((nm, B), dtype=dtype, device=dev)
     P = torch.empty((nm, B), dtype=dtype, device=dev)
     D = torch.empty((nm, B), dtype=dtype, device=dev) if track_pdiff else None

@@ -55,10 +55,83 @@ def max_abs_diff(a: Tensor, b: Tensor, period: float | None = None) -> float:
     return float(d.nan_to_num(torch.inf).max())
 
 
+def rotate(pm: cuda_step.PackedModels, r: int) -> cuda_step.PackedModels:
+    """The same sub-maps cycled from sub-map ``r`` on: a rollout of the
+    result runs sub-map ``(r + i) % n_maps`` in its step i."""
+    M = pm.n_maps
+    if r % M == 0:
+        return pm
+
+    def roll(t):
+        return torch.roll(t.reshape(M, -1), -r, 0).reshape(t.shape)
+
+    return dataclasses.replace(pm, **{f: roll(getattr(pm, f))
+                                      for f in COLUMNS})
+
+
+def one_step_from_rows(rollout, pm: cuda_step.PackedModels, traj: tuple,
+                       kw: dict) -> list:
+    """One step of ``rollout(pm, q, p, 2, **kw)`` from each of the
+    trajectory's rows 0 .. nm - 2 (its orbits side by side, one call for
+    each sub-map), each by the sub-map that made the row after it in the
+    trajectory (row i + 1 by sub-map i mod n_maps): the (nm - 1, B) next
+    rows of Q and P and, with pdiff, of the step's unwrapped increment."""
+    nm, B = traj[0].shape
+    out = [torch.empty_like(t[1:]) for t in traj]
+    for r in range(min(pm.n_maps, nm - 1)):
+        rows = slice(r, nm - 1, pm.n_maps)
+        q, p = (t[rows].reshape(-1).contiguous() for t in traj[:2])
+        got = rollout(rotate(pm, r), q, p, 2, **kw)
+        n = q.numel() // B
+        for o, g in zip(out[:2], got[:2]):
+            o[rows] = g[1].reshape(n, B)
+        if len(traj) == 3:
+            out[2][rows] = (got[2][1] - got[2][0]).reshape(n, B)
+    return out
+
+
+def step_err(rollout, pm: cuda_step.PackedModels, traj: tuple,
+             kw: dict) -> float:
+    """The largest difference between ``one_step_from_rows`` of
+    ``rollout`` and the trajectory's own next rows: Q and P on their
+    circles and, with pdiff, the step's unwrapped increment."""
+    got = one_step_from_rows(rollout, pm, traj, kw)
+    errs = [max_abs_diff(g, t[1:], per)
+            for g, t, per in zip(got[:2], traj[:2], periods(pm, 2))]
+    if len(traj) == 3:
+        errs.append(max_abs_diff(got[2], traj[2][1:] - traj[2][:-1]))
+    return max(errs)
+
+
 def periods(pm: cuda_step.PackedModels, n_out: int) -> list:
     """The circle of each rollout output: Q's mod_q, P's mod_p and none
     for pdiff's unwrapped D."""
     return [pm.mod_q, pm.mod_p, None][:n_out]
+
+
+def _l2(pairs, pers) -> float:
+    """The L2 norm of the differences of the (a, b) pairs, a difference of
+    angles on its circle of ``pers``, NaN entries left out."""
+    d = torch.cat([circle_diff(a.double() - b, per).reshape(-1)
+                   for (a, b), per in zip(pairs, pers)])
+    return float(d[~torch.isnan(d)].norm())
+
+
+def residual(pm: cuda_step.PackedModels, traj: tuple, kw: dict) -> float:
+    """The L2 residual of every row of ``traj`` after the first against
+    one float64 step of the plain version (float64 copies of ``pm``'s
+    columns, 8 Newton iterations) from the row before it, a Split model's
+    rows each by the sub-map that made the next (``one_step_from_rows``);
+    with pdiff, the step's unwrapped increment too.  NaN entries are left
+    out, angles compared on their circles."""
+    traj = tuple(t.double() for t in traj)
+    step = one_step_from_rows(
+        lambda *a, **k: cuda_step.rollout_reference(*a, iters=8, **k),
+        as_float64(pm), traj, kw)
+    pairs = [(t[1:], s) for t, s in zip(traj[:2], step)]
+    if len(traj) == 3:  # pdiff's increment of each step
+        pairs.append((traj[2][1:] - traj[2][:-1], step[2]))
+    return _l2(pairs, periods(pm, len(traj)))
 
 
 def f32_vs_f64(pm: cuda_step.PackedModels, q: Tensor, p: Tensor, kw: dict,
@@ -68,33 +141,17 @@ def f32_vs_f64(pm: cuda_step.PackedModels, q: Tensor, p: Tensor, kw: dict,
     float32 columns: the L2 distance at steps 1-2 to the float64 rollout
     (``err_*``), and the L2 residual of every later row against one
     float64 step from the row before it in the same trajectory
-    (``residual_*``; each trajectory's own, so the chaos of the free
-    orbits does not enter).  NaN entries are left out, angles compared on
-    their circles; ``max_abs_err_steps_1_2`` is the kernel against the
-    plain version.  ``err`` is the L2 error function itself, for wrong
-    trajectories a caller builds; pop it before printing."""
-    exact = as_float64(pm)
+    (``residual_*``, ``residual``: each trajectory's own, so the chaos of
+    the free orbits does not enter).  NaN entries are left out, angles
+    compared on their circles; ``max_abs_err_steps_1_2`` is the kernel
+    against the plain version.  ``err`` is the L2 error function itself,
+    for wrong trajectories a caller builds; pop it before printing."""
     pers = periods(pm, len(got))
-    x = cuda_step.rollout_reference(exact, q.double(), p.double(), 3,
-                                    iters=8, **kw)
-
-    def l2(pairs) -> float:
-        d = torch.cat([circle_diff(a.double() - b, per).reshape(-1)
-                       for (a, b), per in zip(pairs, pers)])
-        return float(d[~torch.isnan(d)].norm())
+    x = cuda_step.rollout_reference(as_float64(pm), q.double(), p.double(),
+                                    3, iters=8, **kw)
 
     def err(out) -> float:
-        return l2([(o[1:3], e[1:3]) for o, e in zip(out, x)])
-
-    def residual(traj) -> float:
-        rows = [t[:-1].reshape(-1).double() for t in traj[:2]]
-        step = cuda_step.rollout_reference(exact, *rows, 2, iters=8, **kw)
-        pairs = [(t[1:].reshape(-1), s[1]) for t, s in zip(traj[:2], step)]
-        if len(traj) == 3:  # pdiff's increment of each step
-            D = traj[2].double()
-            pairs.append(((D[1:] - D[:-1]).reshape(-1),
-                          step[2][1] - step[2][0]))
-        return l2(pairs)
+        return _l2([(o[1:3], e[1:3]) for o, e in zip(out, x)], pers)
 
     r = dict(
         max_abs_err_steps_1_2=max(
@@ -103,7 +160,8 @@ def f32_vs_f64(pm: cuda_step.PackedModels, q: Tensor, p: Tensor, kw: dict,
         nan_pattern_equal=all(torch.equal(torch.isnan(g), torch.isnan(t))
                               for g, t in zip(got, ref)),
         err_kernel=err(got), err_plain=err(ref),
-        residual_kernel=residual(got), residual_plain=residual(ref))
+        residual_kernel=residual(pm, got, kw),
+        residual_plain=residual(pm, ref, kw))
     r["err_bound"] = NOISE_FACTOR * r["err_plain"]
     r["residual_bound"] = NOISE_FACTOR * r["residual_plain"]
     r["err"] = err

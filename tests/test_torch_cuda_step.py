@@ -7,7 +7,8 @@ steps, so float32 trajectories are compared at steps 1-4 with the
 tolerances of ``tests/test_pallas_step.py`` (2e-5 after one step, 5e-4
 after three), the explicit update, Algorithm 2 and mod_p / pdiff
 included.  Split cycling and the loss check at the new q:
-``test_torch_split.py``.  The kernel itself needs a card:
+``test_torch_split.py``; with the explicit update, Algorithm 2 and mod_p
+/ pdiff: ``test_torch_split_modes.py``.  The kernel itself needs a card:
 ``test_torch_cuda_kernel.py``.
 """
 
@@ -157,26 +158,36 @@ def test_rollout_in_kernel_cpu_runs_reference():
 
 @pytest.mark.parametrize("mode", ["explicit", "track_pdiff", "mod_p",
                                   "sum_kernel"])
-def test_unsupported_modes_raise(mode):
-    """The explicit update, Algorithm 2 and mod_p / pdiff run with one map
-    and the loss check at the old q: with Split cycling (two sub-maps) or
-    the check at the new q they raise, in the kernel's wrapper and in its
-    plain version alike; the same one-map call runs."""
+def test_split_modes_run_where_jax_runs(mode):
+    """The explicit update, Algorithm 2 and mod_p / pdiff with Split
+    cycling (two sub-maps) or the loss check at the new q: the Pallas
+    kernel returns trajectories, and so do the kernel's wrapper and its
+    plain version on the CPU, of the same shape and arity and equal to
+    JAX's at row 1 within 5e-4 (the cases themselves, at their own
+    tolerances: test_torch_split_modes.py)."""
     sgp, aux = f32_models("sum_per_se" if mode == "sum_kernel" else "per_se")
     ts, ta = jax_models_to_port(sgp, aux)
     mod_p = 2 * np.pi if mode == "mod_p" else None
-    pm = cs.pack_models_split([ts, ts], [ta, ta], mod_q=2 * np.pi,
-                              mod_p=mod_p)
-    one = cs.pack_models(ts, ta, mod_q=2 * np.pi, mod_p=mod_p)
     kw = {m: True for m in ("explicit", "track_pdiff") if m == mode}
-    q0, p0 = f32(ics(5, b=8)[0]), f32(ics(5, b=8)[1])
-    for call in (cs.rollout_in_kernel, cs.rollout_reference, cs._launch):
-        with pytest.raises(NotImplementedError, match="does not cover"):
-            call(pm, q0, p0, 2, 5, False, **kw)
-        with pytest.raises(NotImplementedError, match="new q"):
-            call(one, q0, p0, 2, 5, True, loss_at_new_q=True, **kw)
-    out = cs.rollout_in_kernel(one, q0, p0, 2, **kw)
-    assert len(out) == (3 if mode == "track_pdiff" else 2)
+    q0, p0 = ics(5)
+    for n_maps, new_q in ((2, False), (1, True)):
+        pj = ps.pack_models_split([sgp] * n_maps, [aux] * n_maps,
+                                  mod_q=2 * np.pi, mod_p=mod_p)
+        pt = cs.pack_models_split([ts] * n_maps, [ta] * n_maps,
+                                  mod_q=2 * np.pi, mod_p=mod_p)
+        outj = ps.rollout_in_kernel(pj, jnp.asarray(q0, jnp.float32),
+                                    jnp.asarray(p0, jnp.float32), 2,
+                                    loss_check=new_q, loss_at_new_q=new_q,
+                                    interpret=True, **kw)
+        for call in (cs.rollout_in_kernel, cs.rollout_reference):
+            out = call(pt, f32(q0), f32(p0), 2, 5, new_q,
+                       loss_at_new_q=new_q, **kw)
+            assert len(out) == len(outj) == (3 if mode == "track_pdiff"
+                                             else 2)
+            for a, b in zip(out, outj):
+                assert a.shape == b.shape == (2, 128)
+                np.testing.assert_allclose(npy(a[1]), np.asarray(b[1]),
+                                           atol=5e-4)
 
 
 # --- the explicit update, Algorithm 2 and mod_p / pdiff ----------------------

@@ -157,3 +157,24 @@ def test_metrics():
             close(x, y)
     close(tmet.training_mse(t64(a[0]), t64(a[1])),
           jmet.training_mse(jnp.asarray(a[0]), jnp.asarray(a[1])))
+
+
+def test_energy_oscillation_takes_axis():
+    """``axis=`` (the JAX package's keyword, which the headline benchmark
+    passes) is ``dim=``: both axes against JAX's ``energy_oscillation(H,
+    axis=...)``, lost samples left out; the default is axis 0; both
+    keywords at once are refused."""
+    rng = np.random.default_rng(8)
+    H = 1.0 + 0.01 * rng.standard_normal((40, 5))
+    H[7:, 1] = np.nan
+    for axis in (0, 1):
+        want = np.asarray(jmet.energy_oscillation(jnp.asarray(H), axis=axis))
+        for got in (tmet.energy_oscillation(t64(H), axis=axis),
+                    tmet.energy_oscillation(t64(H), dim=axis)):
+            np.testing.assert_allclose(npy(got), want, rtol=RTOL,
+                                       equal_nan=True)
+    np.testing.assert_array_equal(npy(tmet.energy_oscillation(t64(H))),
+                                  npy(tmet.energy_oscillation(t64(H),
+                                                              axis=0)))
+    with pytest.raises(TypeError, match="not both"):
+        tmet.energy_oscillation(t64(H), dim=0, axis=0)

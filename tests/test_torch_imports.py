@@ -42,6 +42,20 @@ def test_every_module_imports_without_jax():
     assert int(r.stdout.strip()) >= 20  # every module was reached
 
 
+def test_bench_imports_without_jax():
+    """The port's headline benchmark imports without JAX, and not the
+    repository's root ``bench.py`` (the JAX package's)."""
+    code = (
+        "from sympgpr_tpu_torch import bench\n"
+        "from sympgpr_tpu_torch import __main__ as cli\n"
+        "assert 'bench' not in sys.modules, sys.modules['bench']\n"
+        "assert bench.__file__.endswith('sympgpr_tpu_torch/bench.py')\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in\n"
+        "            ('jax', 'sympgpr_tpu') and sys.modules[m] is not None]\n")
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+
+
 def test_large_n_modules_import_without_jax():
     """The large-N path's modules by name (the walk above must reach
     them too): kernels' wrappers, the triangular inverse, the workload."""

@@ -60,6 +60,18 @@ def toy_data(n=20, seed=0):
     return X, z, Xp, zp
 
 
+def boundary_data(n: int, seed: int, shift: float):
+    """(X, z) float64 training set of a map near the tokamak's loss boundary:
+    P in [10, 14] (r = 0.5 at cos q = 0.12 for P = 12), q turned by
+    ~``shift`` a step while P moves little."""
+    rng = np.random.default_rng(seed)
+    q = rng.uniform(0, 2 * np.pi, n)
+    P = rng.uniform(10, 14, n)
+    X = np.stack([q, P], 1)
+    z = np.concatenate([0.01 * np.sin(q), shift + 0.1 * np.cos(q)])
+    return X, z
+
+
 def ics(seed=1, b=128):
     rng = np.random.default_rng(seed)
     return rng.uniform(0, 2 * np.pi, b), rng.uniform(-0.5, 0.5, b)

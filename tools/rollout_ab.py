@@ -44,9 +44,11 @@ every team size the kernel takes, and each shape prints its geometry
 (checkouts whose kernel runs teams of lanes, ``launch_geometry``).
 ``--probe`` times the bench batch once more without the loss check and
 once with no Newton iteration.  Prints one JSON line per checkout and
-shape, one with the checkout's nvcc time for ``rollout_step.cu``
-(``build_s``, nothing built before it in that process) and its ptxas
-report, then the card's ``nvidia-smi`` name and power limit.
+shape, one with the checkout's nvcc time for each rollout library it has
+(``build_s``: ``rollout_step.cu`` and, where the checkout has it,
+``rollout_split_modes.cu``, one after the other, nothing built before them
+in that process) and their ptxas report, then the card's ``nvidia-smi``
+name and power limit.
 """
 
 from __future__ import annotations
@@ -194,9 +196,10 @@ def _time(fn, reps: int) -> tuple[float, float]:
 
 
 def _ptxas(build_dir: Path) -> dict:
-    """registers / spills / stack of each rollout kernel instance."""
+    """registers / spills / stack of each rollout kernel instance (of
+    every rollout library built)."""
     out = {}
-    for log in sorted(build_dir.glob("librollout_step-*.log")):
+    for log in sorted(build_dir.glob("librollout_*-*.log")):
         kernel = None
         for ln in log.read_text().splitlines():
             if "Compiling entry function" in ln:
@@ -209,6 +212,11 @@ def _ptxas(build_dir: Path) -> dict:
 
 
 def run_one(tree: str, sweep: bool, probe: bool, reps: int) -> None:
+    # the tree's own package: importing chip_smoke above loaded this
+    # checkout's
+    for name in [m for m in sys.modules
+                 if m.split(".")[0] == "sympgpr_tpu_torch"]:
+        del sys.modules[name]
     sys.path.insert(0, str(Path(tree).resolve()))
     import torch
 
@@ -216,9 +224,12 @@ def run_one(tree: str, sweep: bool, probe: bool, reps: int) -> None:
     from sympgpr_tpu_torch.ops import cuda_step as cs
 
     dev = torch.device("cuda", 0)
-    t0 = time.perf_counter()
-    _build.load("rollout_step")  # nvcc of this checkout's rollout_step.cu
-    build_s = time.perf_counter() - t0
+    build_s = {}  # nvcc of this checkout's rollout libraries, in turn
+    for lib in ("rollout_step", "rollout_split_modes"):
+        if (_build.CSRC / f"{lib}.cu").exists():
+            t0 = time.perf_counter()
+            _build.load(lib)
+            build_s[lib] = time.perf_counter() - t0
     teams = hasattr(cs, "launch_geometry")  # a kernel of teams of lanes
     models = {}
     for name, model, batch, nm, dt in SHAPES:
