@@ -31,6 +31,7 @@ from sympgpr_tpu_torch.gp.covariance import (
 from sympgpr_tpu_torch.kernels.variants import Kernel
 from sympgpr_tpu_torch.linalg.triangular import spd_inverse_from_chol
 from sympgpr_tpu_torch.ops import cuda_cov
+from sympgpr_tpu_torch.profiling import span
 
 Tensor = torch.Tensor
 
@@ -188,26 +189,32 @@ def nll_value_and_grad(kernel: Kernel, params: Tensor, sig: Tensor,
     on the device, with no host sync.
     """
     fused = cuda_cov.want_cuda_build(kernel, X)
-    if fused:
-        Ky = cuda_cov.build_Ky(kernel.name, X, params, sig, torch.abs(sig2n))
-    else:
-        params = params.detach().requires_grad_(True)
-        sig = sig.detach().requires_grad_(True)
-        with torch.enable_grad():
-            K_graph = build_K_fast(kernel, X, X, params, sig)
-        K = K_graph.detach()
-        Ky = K + torch.abs(sig2n) * _eye(K.shape[0], K)
-    L, info = torch.linalg.cholesky_ex(Ky)
-    poison = torch.where(info == 0, 0.0, math.nan).to(Ky.dtype)
-    alpha = torch.cholesky_solve(z[:, None], L)[:, 0]
-    val = 0.5 * z @ alpha + torch.sum(torch.log(torch.diagonal(L)))
+    with span("sympgpr::nll.build"):
+        if fused:
+            Ky = cuda_cov.build_Ky(kernel.name, X, params, sig,
+                                   torch.abs(sig2n))
+        else:
+            params = params.detach().requires_grad_(True)
+            sig = sig.detach().requires_grad_(True)
+            with torch.enable_grad():
+                K_graph = build_K_fast(kernel, X, X, params, sig)
+            K = K_graph.detach()
+            Ky = K + torch.abs(sig2n) * _eye(K.shape[0], K)
+    with span("sympgpr::nll.factor"):
+        L, info = torch.linalg.cholesky_ex(Ky)
+        poison = torch.where(info == 0, 0.0, math.nan).to(Ky.dtype)
+    with span("sympgpr::nll.alpha"):
+        alpha = torch.cholesky_solve(z[:, None], L)[:, 0]
+        val = 0.5 * z @ alpha + torch.sum(torch.log(torch.diagonal(L)))
     S = spd_inverse_from_chol(L)
-    if fused:
-        dparams, dsig = cuda_cov.cov_param_grads_sym(kernel.name, X, params,
-                                                     sig, S, alpha)
-    else:
-        Kbar = 0.5 * S - 0.5 * torch.outer(alpha, alpha)
-        dparams, dsig = torch.autograd.grad(K_graph, (params, sig), Kbar)
+    with span("sympgpr::nll.contraction"):
+        if fused:
+            dparams, dsig = cuda_cov.cov_param_grads_sym(kernel.name, X,
+                                                         params, sig, S,
+                                                         alpha)
+        else:
+            Kbar = 0.5 * S - 0.5 * torch.outer(alpha, alpha)
+            dparams, dsig = torch.autograd.grad(K_graph, (params, sig), Kbar)
     return val + poison, dparams + poison, dsig + poison
 
 

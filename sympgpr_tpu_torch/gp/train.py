@@ -29,6 +29,7 @@ from sympgpr_tpu_torch.gp.covariance import build_K_fast
 from sympgpr_tpu_torch.gp.model import AuxGP, SympGP
 from sympgpr_tpu_torch.kernels.variants import Kernel
 from sympgpr_tpu_torch.ops import cuda_cov
+from sympgpr_tpu_torch.profiling import span
 
 Tensor = torch.Tensor
 
@@ -399,11 +400,35 @@ def _adam(kernel: Kernel, X: Tensor, z: Tensor, theta: Tensor,
     nu = torch.zeros_like(theta)
     hist = torch.empty(steps, dtype=theta.dtype, device=theta.device)
     for i in range(steps):
-        val, g = likelihood.nll_value_and_grad_theta(kernel, theta, sig2n, X,
-                                                     z)
-        theta, mu, nu = adam_update(theta, g, mu, nu, i, lr)
-        hist[i] = val
+        with span("sympgpr::fit.step"):
+            val, g = likelihood.nll_value_and_grad_theta(kernel, theta,
+                                                         sig2n, X, z)
+            with span("sympgpr::fit.update"):
+                theta, mu, nu = adam_update(theta, g, mu, nu, i, lr)
+                hist[i] = val
     return theta, hist
+
+
+def _solve_at(kernel: Kernel, X: Tensor, z: Tensor, theta: Tensor,
+              s2n: Tensor):
+    """The model at the trained theta (alpha from a Cholesky solve at
+    ``s2n``) and its training MSE."""
+    hyp = 10.0 ** theta
+    params, sig = hyp[:-1], hyp[-1]
+    on_kernel = cuda_cov.want_cuda_build(kernel, X)
+    if on_kernel:
+        Ky = cuda_cov.build_Ky(kernel.name, X, params, sig, s2n)
+    else:
+        K = build_K_fast(kernel, X, X, params, sig)
+        Ky = K + s2n * torch.eye(K.shape[0], dtype=X.dtype, device=X.device)
+    L, info = torch.linalg.cholesky_ex(Ky)
+    alpha = torch.where(info == 0, torch.cholesky_solve(z[:, None], L)[:, 0],
+                        math.nan)
+    model = SympGP.from_alpha(kernel, params, sig, s2n, X, z, alpha)
+    # training MSE from the matrix just built (SympGP.training_error would
+    # rebuild K through the autodiff build_K); K alpha = Ky alpha - s2n alpha
+    Kalpha = Ky @ alpha - s2n * alpha if on_kernel else K @ alpha
+    return model, float(torch.mean((Kalpha - z) ** 2))
 
 
 def fit_sympgp_ondevice(
@@ -436,34 +461,20 @@ def fit_sympgp_ondevice(
     escalations = 0
     t_failed = 0.0
     t_start = time.perf_counter()
-    while True:
-        t0 = time.perf_counter()
-        s2n = torch.tensor(sig2n, dtype=dtype, device=dev)
-        theta, hist = _adam(kernel, X, z, theta0, s2n, steps, lr)
-        hist = hist.cpu().numpy()  # the one fetch = sync
-        if np.isfinite(hist[-1]) or escalations >= max_jitter_tries:
-            break
-        t_failed += time.perf_counter() - t0
-        sig2n *= 10.0
-        escalations += 1
-    fit_s = time.perf_counter() - t_start
-
-    hyp = 10.0 ** theta
-    params, sig = hyp[:-1], hyp[-1]
-    on_kernel = cuda_cov.want_cuda_build(kernel, X)
-    if on_kernel:
-        Ky = cuda_cov.build_Ky(kernel.name, X, params, sig, s2n)
-    else:
-        K = build_K_fast(kernel, X, X, params, sig)
-        Ky = K + s2n * torch.eye(K.shape[0], dtype=dtype, device=dev)
-    L, info = torch.linalg.cholesky_ex(Ky)
-    alpha = torch.where(info == 0, torch.cholesky_solve(z[:, None], L)[:, 0],
-                        math.nan)
-    model = SympGP.from_alpha(kernel, params, sig, s2n, X, z, alpha)
-    # training MSE from the matrix just built (SympGP.training_error would
-    # rebuild K through the autodiff build_K); K alpha = Ky alpha - s2n alpha
-    Kalpha = Ky @ alpha - s2n * alpha if on_kernel else K @ alpha
-    train_mse = float(torch.mean((Kalpha - z) ** 2))
+    with span("sympgpr::fit"):
+        while True:
+            t0 = time.perf_counter()
+            s2n = torch.tensor(sig2n, dtype=dtype, device=dev)
+            theta, hist = _adam(kernel, X, z, theta0, s2n, steps, lr)
+            with span("sympgpr::fit.finish"):
+                hist = hist.cpu().numpy()  # the one fetch = sync
+                if np.isfinite(hist[-1]) or escalations >= max_jitter_tries:
+                    fit_s = time.perf_counter() - t_start
+                    model, train_mse = _solve_at(kernel, X, z, theta, s2n)
+                    break
+            t_failed += time.perf_counter() - t0
+            sig2n *= 10.0
+            escalations += 1
     timings = {"fit_s": fit_s, "fit_escalation_s": t_failed,
                "sig2n_used": float(sig2n), "jitter_escalations": escalations}
     return model, hist, train_mse, timings

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from sympgpr_tpu_torch.ops import cuda_syrk, cuda_trimm
+from sympgpr_tpu_torch.profiling import span
 
 Tensor = torch.Tensor
 
@@ -83,5 +84,7 @@ def tri_inv_blocked(L: Tensor) -> Tensor:
 
 def spd_inverse_from_chol(L: Tensor) -> Tensor:
     """Ky^{-1} from its lower Cholesky factor: W = L^{-1}, then W^T W."""
-    W = tri_inv_blocked(L).contiguous()
-    return cuda_syrk.syrk_lower(W)
+    with span("sympgpr::linalg.tri_inv"):
+        W = tri_inv_blocked(L).contiguous()
+    with span("sympgpr::linalg.syrk"):
+        return cuda_syrk.syrk_lower(W)

@@ -37,6 +37,7 @@ from sympgpr_tpu_torch.kernels.variants import get_kernel
 from sympgpr_tpu_torch.maps import fast_apply
 from sympgpr_tpu_torch.maps.symplectic import MapConfig
 from sympgpr_tpu_torch.ops import _build
+from sympgpr_tpu_torch.profiling import span
 from sympgpr_tpu_torch.systems.tokamak import compute_r
 
 Tensor = torch.Tensor
@@ -453,24 +454,27 @@ def _launch(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int, iters: int,
     orbit (``launch_geometry`` chooses by default).  Returns (Q, P), or
     (Q, P, D) with ``track_pdiff``."""
     global LAUNCHES
-    geo = _validate(pm, q0, p0, nm, iters, team, loss_at_new_q)
     dev, dtype = q0.device, q0.dtype
+    with span("sympgpr::rollout.validate"):
+        geo = _validate(pm, q0, p0, nm, iters, team, loss_at_new_q)
+        lib = _library(pm, loss_at_new_q, explicit, track_pdiff)
     B = q0.shape[0]
-    lib = _library(pm, loss_at_new_q, explicit, track_pdiff)
     sym = f"{lib}_f32" if dtype == torch.float32 else f"{lib}_f64"
-    fn = _build.function(lib, sym, _ARGS)
-    Q = torch.empty((nm, B), dtype=dtype, device=dev)
-    P = torch.empty((nm, B), dtype=dtype, device=dev)
-    D = torch.empty((nm, B), dtype=dtype, device=dev) if track_pdiff else None
+    with span("sympgpr::rollout.alloc"):
+        fn = _build.function(lib, sym, _ARGS)
+        Q = torch.empty((nm, B), dtype=dtype, device=dev)
+        P = torch.empty((nm, B), dtype=dtype, device=dev)
+        D = (torch.empty((nm, B), dtype=dtype, device=dev) if track_pdiff
+             else None)
     ptr = _build.ptr
-    with torch.cuda.device(dev):
+    with span("sympgpr::rollout.launch"), torch.cuda.device(dev):
         rc = fn(*(ptr(t) for t in pm.tensors()), ptr(q0), ptr(p0), ptr(Q),
                 ptr(P), ptr(D) if track_pdiff else None, B, pm.ns, pm.nas,
                 pm.n_maps, nm, iters, pm.kind, pm.aux_kind, int(loss_check),
                 int(loss_at_new_q), int(explicit), int(pm.mod_p is not None),
                 int(track_pdiff), geo.team, geo.teams_per_block, geo.threads,
                 geo.smem_bytes, *geo.instance, _build.stream(dev))
-    _build.check(rc, "rollout kernel")
+        _build.check(rc, "rollout kernel")
     LAUNCHES += 1
     return (Q, P, D) if track_pdiff else (Q, P)
 
@@ -486,14 +490,15 @@ def rollout_in_kernel(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int,
     CPU tensors run ``rollout_reference``; CUDA tensors launch the kernel
     (and raise if it cannot).
     """
-    if q0.device.type == "cpu":
-        return rollout_reference(pm, q0, p0, nm, iters, loss_check,
-                                 loss_at_new_q, explicit, track_pdiff)
-    if q0.device.type != "cuda":
-        raise ValueError(f"no rollout for device {q0.device}")
-    return _launch(pm, q0, p0, nm, iters, loss_check,
-                   loss_at_new_q=loss_at_new_q, explicit=explicit,
-                   track_pdiff=track_pdiff)
+    with span("sympgpr::rollout"):
+        if q0.device.type == "cpu":
+            return rollout_reference(pm, q0, p0, nm, iters, loss_check,
+                                     loss_at_new_q, explicit, track_pdiff)
+        if q0.device.type != "cuda":
+            raise ValueError(f"no rollout for device {q0.device}")
+        return _launch(pm, q0, p0, nm, iters, loss_check,
+                       loss_at_new_q=loss_at_new_q, explicit=explicit,
+                       track_pdiff=track_pdiff)
 
 
 def rollout_model(sgp: SympGP | list[SympGP],

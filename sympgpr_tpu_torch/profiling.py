@@ -1,11 +1,25 @@
-"""Tracing, per-phase timing and kernel launch counts (PyTorch port of
-``sympgpr_tpu/profiling.py``).
+"""Spans, kernel timing and kernel launch counts of the port.
 
-* ``PhaseTimer``: accumulating named phases that synchronise the CUDA
-  device at their end, so a phase charges the card's work, not its
-  dispatch;
-* ``trace``: ``torch.profiler`` over a block, written as a Chrome trace
-  (open it in ui.perfetto.dev or chrome://tracing);
+* ``span``: a named range of the program in ``torch.profiler``'s trace,
+  recorded only while a profiler runs.  With none running it is one
+  check of the profiler's state and returns a shared null context: no
+  switch, no argument, no environment variable.  A span's parent is the
+  span that encloses it in time on the same thread.  The spans:
+
+  - the large-N fit (``gp/train.py::fit_sympgp_ondevice``):
+    ``sympgpr::fit`` (one call, escalations included), in it
+    ``sympgpr::fit.step`` (one Adam step) and ``sympgpr::fit.finish``
+    (an attempt's history fetch; the last attempt's also the final
+    build, factor, alpha solve and training error); in a step
+    ``sympgpr::nll.build``, ``sympgpr::nll.factor``,
+    ``sympgpr::nll.alpha``, ``sympgpr::linalg.tri_inv``,
+    ``sympgpr::linalg.syrk``, ``sympgpr::nll.contraction`` and
+    ``sympgpr::fit.update``;
+  - the rollout (``ops/cuda_step.py``): ``sympgpr::rollout`` (one call of
+    ``rollout_in_kernel``, the CPU path included), in a launch
+    ``sympgpr::rollout.validate``, ``sympgpr::rollout.alloc`` and
+    ``sympgpr::rollout.launch``;
+
 * ``best_ms``: the one timer of the package, ``workloads/large_n.py`` and
   ``chip_smoke.py``: CUDA events around a call on a CUDA device, the host
   clock on the CPU, best of a few;
@@ -17,12 +31,11 @@ from __future__ import annotations
 
 import contextlib
 import math
-import os
 import time
-from collections import defaultdict
 from typing import Callable
 
 import torch
+import torch.profiler
 
 
 def _sync(device: torch.device | str | None) -> None:
@@ -30,56 +43,16 @@ def _sync(device: torch.device | str | None) -> None:
         torch.cuda.synchronize(device)
 
 
-class PhaseTimer:
-    """Accumulating named phase timer; a phase ends with a synchronise of
-    ``device`` where it is a CUDA device (None: no synchronise).
-
-    >>> t = PhaseTimer(device)
-    >>> with t.phase("fit"):
-    ...     ...
-    >>> t.report()
-    """
-
-    def __init__(self, device: torch.device | str | None = "cuda"):
-        self.device = device
-        self.totals: dict[str, float] = defaultdict(float)
-        self.counts: dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def phase(self, name: str, sync: bool = True):
-        t0 = time.perf_counter()
-        yield
-        if sync:
-            # drain the stream so the phase charges device time
-            _sync(self.device)
-        self.totals[name] += time.perf_counter() - t0
-        self.counts[name] += 1
-
-    def report(self) -> dict[str, dict[str, float]]:
-        return {
-            k: {"total_s": self.totals[k], "calls": self.counts[k]}
-            for k in self.totals
-        }
-
-    def __str__(self):
-        return " | ".join(
-            f"{k}: {v:.3f}s/{self.counts[k]}" for k, v in self.totals.items()
-        )
+_OFF = contextlib.nullcontext()
+_profiler_enabled = torch._C._autograd._profiler_enabled
 
 
-@contextlib.contextmanager
-def trace(logdir: str, path: str = "trace.json"):
-    """``torch.profiler`` trace of the block (the CPU, and the CUDA device
-    where there is one), written as a Chrome trace to ``logdir/path``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(logdir, path))
+def span(name: str):
+    """``torch.profiler.record_function(name)`` while a profiler runs,
+    else one shared null context (nothing is made)."""
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 def best_ms(fn: Callable[[], object], reps: int = 3, calls: int = 1,

@@ -1,15 +1,13 @@
 """``plotting.py`` and ``profiling.py`` of the port: the portrait and
 energy-drift figures, ``cost_landscape``'s grid and gradients against the
-JAX package's on the same objective, and the timer, phase timer, trace and
-launch counters on the CPU."""
+JAX package's on the same objective, and the timer and launch counters on
+the CPU (the spans: ``tests/test_torch_tracing.py``)."""
 
 import pytest
 
 pytest.importorskip("torch")
 pytest.importorskip("jax")
 pytest.importorskip("matplotlib")
-
-import json  # noqa: E402
 
 import jax.numpy as jnp  # noqa: E402
 import matplotlib.axes  # noqa: E402
@@ -95,26 +93,6 @@ def test_best_ms_on_the_host_clock():
     profiling.best_ms(lambda: calls.append(1), reps=2, warmup=False,
                       device=None)
     assert len(calls) == 2
-
-
-def test_phase_timer_accumulates(capsys):
-    t = profiling.PhaseTimer(CPU)
-    for _ in range(2):
-        with t.phase("fit"):
-            torch.ones(8).sum()
-    with t.phase("apply", sync=False):
-        pass
-    rep = t.report()
-    assert rep["fit"]["calls"] == 2 and rep["apply"]["calls"] == 1
-    assert rep["fit"]["total_s"] >= 0 and "fit:" in str(t)
-
-
-def test_trace_writes_a_chrome_trace(tmp_path):
-    with profiling.trace(str(tmp_path), "t.json"):
-        (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
-    with open(tmp_path / "t.json") as f:
-        events = json.load(f)["traceEvents"]
-    assert any("mm" in e.get("name", "") for e in events)
 
 
 def test_launch_counts_read_and_zero():
