@@ -823,7 +823,8 @@ def _rollout_noise_check(pm, q0, p0, sm_count) -> dict:
     """The float32 kernel and plain version at steps 1-2 against the
     float64 rollout of the same float32 columns: L2 errors over (Q, P)
     and their max; the plain version without the points of the kernel's
-    last lane (n = team - 1 mod team) beside them."""
+    last lane (n = width - 1 mod width, the width of a cluster team's
+    lanes over its blocks) beside them."""
     import dataclasses
 
     from sympgpr_tpu_torch.ops import cuda_step as cs
@@ -835,9 +836,10 @@ def _rollout_noise_check(pm, q0, p0, sm_count) -> dict:
     Qx, Px = cs.rollout_reference(exact, q0.double(), p0.double(), 3,
                                   loss_check=True)
     geo = cs.launch_geometry(q0.shape[0], pm.ns, pm.nas, q0.dtype, sm_count)
+    width = geo.team * geo.cluster
     dropped = dataclasses.replace(pm, a0=pm.a0.clone(), a1=pm.a1.clone())
-    dropped.a0[geo.team - 1::geo.team] = 0
-    dropped.a1[geo.team - 1::geo.team] = 0
+    dropped.a0[width - 1::width] = 0
+    dropped.a1[width - 1::width] = 0
     Qd, Pd = cs.rollout_reference(dropped, q0, p0, 3, loss_check=True)
 
     def err(Q, P) -> float:
@@ -992,8 +994,9 @@ def phase_large_n_main(dev) -> dict:
                           stderr_tail=r.stderr[-2000:]),
                main_s=t_main, wall_s=time.perf_counter() - t0)
     emit("large_n_main", **res)
-    for k, count in launches.items():
-        assert count > 0, f"large_n launched no {k} kernel"
+    for k, count in launches.items():  # its rollouts run no cluster team
+        assert count > 0 or k == "rollout_cluster", \
+            f"large_n launched no {k} kernel"
     assert set(m["launches"]) == set(large_n.STAGE_KERNELS), m["launches"]
     for stage, kernels in large_n.STAGE_KERNELS.items():
         got = {k for k, c in m["launches"][stage].items() if c > 0}
@@ -1520,8 +1523,9 @@ def phase_stdmap_large(dev):
                gate_one_step_mse=GATE_STDMAP_LARGE_MSE,
                verdict_one_step_mse_tpu_run=VERDICT_STDMAP_LARGE_MSE_TPU)
     emit("stdmap_large", **res)
-    for k, n in launches.items():
-        assert n > 0, f"standard_map_large launched no {k} kernel"
+    for k, n in launches.items():  # the wrap mode runs no cluster team
+        assert n > 0 or k == "rollout_cluster", \
+            f"standard_map_large launched no {k} kernel"
     assert out["nll_decreased"], res
     assert out["finite_frac"] == 1.0 and out["pdiff_finite"], res
     assert out["one_step_mse"] < GATE_STDMAP_LARGE_MSE, res
@@ -1734,8 +1738,11 @@ def phase_modes_kernel_vs_plain(dev, stdmap, pendulum, large):
             ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"],
             bound_by=b["bound_by"], bound_share=b["bound_ms"] / ms,
             orbit_steps_per_s=(nm - 1) * batch / (ms * 1e-3),
-            geometry=cs.launch_geometry(batch, pm.ns, pm.nas, torch.float32,
-                                        sm_count).__dict__)
+            geometry=cs.launch_geometry(
+                batch, pm.ns, pm.nas, torch.float32, sm_count,
+                mode=cs.kernel_mode(pm.kind, kw.get("explicit", False),
+                                    pm.mod_p is not None,
+                                    kw.get("track_pdiff", False))).__dict__)
     emit("modes_kernel_vs_plain", modes=res, wrong_trajectories=wrong,
          large_n4096=large_check, timing=timing, f64_atol=ATOL_F64_STEP,
          f32_atol=ATOL_F32, f32_atol_stdmap=ATOL_F32_STDMAP)
@@ -2136,8 +2143,9 @@ def phase_bench_main(dev, smi: str, models) -> dict:
     assert math.isfinite(diag["ref_size_mean_Eosc"]), diag
     assert isinstance(large, dict) and isinstance(tok, dict)
     assert detail["nuts_samples_per_s"] > 0, detail
-    for k, n in diag["launches"].items():
-        assert n > 0, f"bench launched no {k} kernel"
+    for k, n in diag["launches"].items():  # its cut sizes take no cluster
+        assert n > 0 or k == "rollout_cluster", \
+            f"bench launched no {k} kernel"
     f32, spread = check["first_rows"], check["every_10th_row"]
     assert check["launches"] > 0, check
     assert check["steps"] == [10_000, 30] and check["lost"] <= GATE_LOST

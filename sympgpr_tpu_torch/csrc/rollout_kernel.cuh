@@ -1,9 +1,9 @@
 // Fused symplectic-map rollout on Hopper (sm_90a): the whole nm-step
 // iteration of the learned map for a batch of orbits in one launch.  The
 // kernel template and its launch; two libraries instantiate it
-// (rollout_step.cu: every one-map instance and the Split implicit one;
-// rollout_split_modes.cu: the Split instances of the other modes), so
-// their nvcc runs side by side.
+// (rollout_step.cu: every one-map instance, the cluster instances and the
+// Split implicit one; rollout_split_modes.cu: the Split instances of the
+// other modes), so their nvcc runs side by side.
 //
 // Replaces sympgpr_tpu/ops/pallas_step.py::_rollout_kernel (with its helpers
 // _sfactors and _tokamak_lost): product kernels per_se / se_se /
@@ -135,6 +135,33 @@
 //    NaN.  At the new q (Split instances) the wrapped P is staged, as the
 //    TPU kernel checks it, and the lost row keeps its pdiff: the TPU kernel
 //    sums P - p before the check, so pdiff turns NaN one row later.
+//  * A cluster team (a template flag, CLUSTER; the implicit one-map mode at
+//    the old q only): where a small batch leaves most SMs idle and each lane
+//    of a one-block team holds many points, one orbit's team spans a
+//    thread-block cluster of C blocks on C SMs, one team a block.  Lane j of
+//    the orbit is lane j mod team of the block of rank j / team, and owns
+//    the points n = j (mod C team), so each block's rows hold 1/C of the
+//    slice.  A team sum is each warp's butterfly, then the lanes of every
+//    warp store the warp's sums, a value each, into its (rank, warp) place
+//    in a slot of every block (st.async at mapa's address), each store
+//    completing bytes of that block's mbarrier of the slot; each block waits
+//    on its own mbarrier (acquire at cluster scope) and adds the C x warps
+//    partials in (rank, warp) order, so every lane of every block holds the
+//    same bits and takes the same branches.  (A block's sum first, sent by
+//    one thread, ran the N = 4096 latency shape 0.6 ms slower on an H100,
+//    PERF.md.)  Two slots and two mbarriers alternate, as the warp sums'
+//    slots do: a warp refills a peer's slot only after every warp of that
+//    peer has sent the sum between, which each does after reading the slot.
+//    Each block's solver warp solves the loss boundary of the same staged
+//    (q, P), so every block gets the same flag without a word between them.
+//    Rank 0 writes the rows.  A cluster instance's rows hold all its points
+//    (4 or 8, padding zero), and its step loops run over them with no guard
+//    between the pair groups, so their loads and exps overlap: a lane holds
+//    few points there, and the guards had cost 0.5 ms of 6.2 at N = 4096
+//    (H100).  The whole cluster meets twice (barrier.cluster): once its
+//    mbarriers are set up, before any peer may store to them, and at the
+//    end, so no block leaves while a peer may still write into it; the
+//    solver warps take part in those two and in nothing else of the cluster.
 //  * Templated on float and double.  Built without --use_fast_math: the
 //    float posterior sums already carry ~1e-4 cancellation noise, so the
 //    full-precision expf/sincosf (and exp/sincos) are used.  Only the order
@@ -150,6 +177,8 @@ constexpr int kSolverThreads = 32;  // the loss-solve warp of a block
 constexpr int kNScal = 12;          // scal's row of each sub-map
 constexpr int kPMax = 16;           // training points a lane holds
 constexpr int kMaxTeam = 1024;      // lanes per orbit
+constexpr int kClusterMax = 8;      // blocks of a cluster team (portable)
+constexpr int kClusterWarps = 8;    // compute warps of a cluster team's block
 // The kernel's two kinds: per_se is per_se_freq at frequency 1/2 (the same
 // factors to the last bit), so both run the periodic instance.
 constexpr int kPeriodic = 0;
@@ -227,6 +256,145 @@ __device__ __forceinline__ void compute_sync(int threads) {
 #else
   named_barrier_sync(1, threads);
 #endif
+}
+
+// Thread-block clusters (sm_90): the block's rank in its cluster, the
+// cluster's size and index, the cluster-wide barrier, and the mbarrier and
+// remote shared-memory operations of the cluster team sum.  Without
+// __CUDA_ARCH__ (a host build of the source) a cluster of one block.
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r = 0;
+#ifdef __CUDA_ARCH__
+  asm("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+#endif
+  return r;
+}
+__device__ __forceinline__ unsigned cluster_size() {
+  unsigned n = 1;
+#ifdef __CUDA_ARCH__
+  asm("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+#endif
+  return n;
+}
+__device__ __forceinline__ unsigned cluster_id() {
+#ifdef __CUDA_ARCH__
+  unsigned c;
+  asm("mov.u32 %0, %%clusterid.x;" : "=r"(c));
+  return c;
+#else
+  return blockIdx.x;
+#endif
+}
+__device__ __forceinline__ void cluster_sync() {
+#ifdef __CUDA_ARCH__
+  asm volatile("barrier.cluster.arrive;\n\tbarrier.cluster.wait;" ::
+                   : "memory");
+#endif
+}
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+#ifdef __CUDA_ARCH__
+// the address of the same shared variable in the block of rank r
+__device__ __forceinline__ unsigned map_rank(unsigned addr, unsigned r) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out)
+               : "r"(addr), "r"(r));
+  return out;
+}
+// v into the shared memory of another block of the cluster at `to`; its
+// bytes complete the transaction count of that block's mbarrier `bar`
+__device__ __forceinline__ void st_async(unsigned to, float v,
+                                         unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];" ::"r"(to),
+      "r"(__float_as_uint(v)), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void st_async(unsigned to, double v,
+                                         unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], %1, "
+      "[%2];" ::"r"(to),
+      "l"(__double_as_longlong(v)), "r"(bar)
+      : "memory");
+}
+#endif
+
+// The cluster team sum's state, in cluster instances only: two slots of
+// every rank's partial sums (2 values each) and the two mbarriers they
+// complete, in the block's static shared memory; the block's rank and the
+// cluster's size; the sums so far, which pick the slot and the phase to
+// wait for.
+template <typename T, bool CLUSTER>
+struct Exchange {
+  static constexpr unsigned rank = 0, log_size = 0;
+};
+template <typename T>
+struct Exchange<T, true> {
+  T* slots;       // [2][kClusterMax][kClusterWarps][2]
+  unsigned bars;  // shared address of the two mbarriers (8 bytes each)
+  unsigned rank, size, log_size, sums;
+};
+
+// The block's partials v (the same in every compute thread) to every
+// block of the cluster; back the cluster's sum, the ranks' partials added
+// in rank order.  The slot's mbarrier completes a phase when its block's
+// thread 0 has arrived, expecting the C ranks' bytes, and those bytes have
+// landed (in either order: a peer's may come first).  A wait that lasts
+// far beyond any sum (a peer lost) traps rather than hang the card.
+template <int N, typename T>
+__device__ __forceinline__ void cluster_sum(T (&v)[N], Exchange<T, true>& x,
+                                            unsigned nw) {
+  const unsigned s = x.sums & 1, parts = x.size * nw;
+  T* slot = x.slots + s * (2 * kClusterMax * kClusterWarps);
+#ifdef __CUDA_ARCH__
+  const unsigned bar = x.bars + 8 * s, phase = (x.sums >> 1) & 1;
+  if (threadIdx.x == 0)
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+        "r"(unsigned(N * sizeof(T)) * parts)
+        : "memory");
+  // lane r N + i of each warp sends the warp's value i to the block of
+  // rank r (every lane holds the warp's sums)
+  const unsigned l = threadIdx.x & 31;
+  if (l < x.size * N) {
+    const unsigned r = l / N, i = l % N;
+    const unsigned mine =
+        smem_addr(slot + 2 * (x.rank * nw + (threadIdx.x >> 5)) + i);
+    st_async(map_rank(mine, r), N == 2 && i == 1 ? v[N - 1] : v[0],
+             map_rank(bar, r));
+  }
+  unsigned long long since = 0;
+  for (unsigned polls = 1;; ++polls) {
+    unsigned done;
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n\tselp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(bar), "r"(phase)
+        : "memory");
+    if (done) break;
+    if ((polls & 1023) == 0) {  // 10 s on the card's clock: a peer is lost
+      unsigned long long now;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+      if (since == 0)
+        since = now;
+      else if (now - since > 10000000000ull)
+        __trap();
+    }
+  }
+#endif
+  ++x.sums;
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i] = T(0);
+  for (unsigned j = 0; j < parts; ++j) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] += slot[2 * j + i];
+  }
 }
 
 template <typename T>
@@ -349,10 +517,12 @@ __host__ __device__ constexpr bool split_instance(int n_maps,
 // Team sum of N values.  Teams of up to 32 lanes: xor butterfly inside the
 // warp (the offsets stay inside the team's aligned group of lanes).  Wider
 // teams: the warp butterfly, then the team's warp sums from shared memory
-// in a fixed order.  Every lane of the team returns the same bits.
-template <int N, typename T>
+// in a fixed order.  A cluster team then adds the blocks' sums
+// (cluster_sum).  Every lane of the team returns the same bits.
+template <bool CLUSTER, int N, typename T>
 __device__ __forceinline__ void team_sum(T (&v)[N], const Args<T>& a,
-                                         T* red, int& parity) {
+                                         T* red, int& parity,
+                                         Exchange<T, CLUSTER>& x) {
   if (a.team <= 32) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
@@ -361,12 +531,17 @@ __device__ __forceinline__ void team_sum(T (&v)[N], const Args<T>& a,
         for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(kFull, v[i], o);
       }
     }
+    if constexpr (CLUSTER) cluster_sum(v, x, 1);
     return;
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
 #pragma unroll
     for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(kFull, v[i], o);
+  }
+  if constexpr (CLUSTER) {  // each warp's sum straight to every block
+    cluster_sum(v, x, a.team >> 5);
+    return;
   }
   const int nwarps = a.compute >> 5;
   T* slot = red + parity * (2 * nwarps);
@@ -387,7 +562,7 @@ __device__ __forceinline__ void team_sum(T (&v)[N], const Args<T>& a,
 }
 
 template <typename T, int KIND, int AUX_KIND, bool SPLIT, int MODE,
-          typename S>
+          bool CLUSTER, typename S>
 __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
     rollout_kernel(Args<T> a) {
   constexpr int PM = S::kPM;
@@ -442,12 +617,40 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
   }
   __syncthreads();  // the aux tables (and the constants) are complete
 
+  // a cluster team: the exchange's mbarriers set up in every block of the
+  // cluster before any peer stores to them
+  Exchange<T, CLUSTER> x;
+  if constexpr (CLUSTER) {
+    __shared__ unsigned long long s_bars[2];
+    __shared__ T s_slots[2 * kClusterMax * kClusterWarps * 2];
+    x.slots = s_slots;
+    x.bars = smem_addr(s_bars);
+    x.rank = cluster_rank();
+    x.size = cluster_size();
+    x.log_size = __ffs(x.size) - 1;
+    x.sums = 0;
+#ifdef __CUDA_ARCH__
+    if (threadIdx.x == 0) {
+      for (int j = 0; j < 2; ++j)  // thread 0's arrival a phase
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                         x.bars + 8 * j),
+                     "r"(1u)
+                     : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+#endif
+    cluster_sync();
+  }
+
   const bool own_solver = int(blockDim.x) == nc;  // no solver warp
   if (threadIdx.x >= nc) {
     // The solver warp: the loss boundary of step i for every orbit of the
     // block, while the compute warps run step i + 1.  One block-wide
     // barrier a step hands over the staged (q, P) and the flags.
-    if (!a.loss_check) return;
+    if (!a.loss_check) {
+      if constexpr (CLUSTER) cluster_sync();  // no block leaves early
+      return;
+    }
     for (int i = 1; i <= a.nm; ++i) {
       __syncthreads();
       if (i == a.nm) break;
@@ -455,16 +658,24 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
       for (int t = threadIdx.x - nc; t < teams; t += kSolverThreads)
         s_lost[s + t] = tokamak_lost(s_lP[s + t], s_lq[s + t]) ? T(1) : T(0);
     }
+    if constexpr (CLUSTER) cluster_sync();
     return;
   }
 
   const int t = threadIdx.x >> a.log_team;       // team in the block
   const int lane = threadIdx.x & (team - 1);
-  const int bt = blockIdx.x * teams + t;
-  const bool active = bt < a.B;
+  // the lane's place in the orbit's team, and the team's width: a cluster
+  // team's blocks hold its lanes in rank order
+  const int pl = CLUSTER ? int(x.rank) * team + lane : lane;
+  const int width = CLUSTER ? team << x.log_size : team;
+  const int log_width = CLUSTER ? a.log_team + int(x.log_size) : a.log_team;
+  const unsigned blk = CLUSTER ? cluster_id() : blockIdx.x;
+  const int bt = blk * teams + t;
+  bool active = bt < a.B;
   const int b = active ? bt : a.B - 1;           // the edge copies an orbit
-  const int last = ns - lane;  // k * team < last: the lane holds point k
-  const int naux = lane < nas ? (nas - lane + team - 1) >> a.log_team : 0;
+  if constexpr (CLUSTER) active = active && x.rank == 0;  // rank 0 writes
+  const int last = ns - pl;  // k * width < last: the lane holds point k
+  const int naux = pl < nas ? (nas - pl + width - 1) >> log_width : 0;
   // point k's record: rec[F * k + field]; c2 first, s last, and sub-map
   // m's fields from 1 + kMapFields * m on
   T* rec = s_rows + threadIdx.x * row_length(a.npad, F);
@@ -476,19 +687,19 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
   for (int m = 0; m < maps; ++m) {
     const T freq =
         SPLIT ? (a.half ? T(0.5) : a.scal[kNScal * m + 6]) : c.freq;
-    const int g0 = m * ns + lane;
+    const int g0 = m * ns + pl;
 #pragma unroll
     for (int k = 0; k < PM; ++k) {
       if (k < a.npad) {
-        const bool in = k < np && k * team < last;
-        const T u = in ? a.uq[g0 + k * team] : T(0);
+        const bool in = k < np && k * width < last;
+        const T u = in ? a.uq[g0 + k * width] : T(0);
         T sk = u, ck = T(1);
         if (KIND != kSeSe) dsincos(freq * u, &sk, &ck);
         T* r = rec + F * k + 1 + kMapFields * m;
         r[kSU] = sk;
         r[kCU] = ck;
-        r[kUP] = in ? a.uP[g0 + k * team] : T(0);
-        r[kC3] = in ? a.a1[g0 + k * team] : T(0);
+        r[kUP] = in ? a.uP[g0 + k * width] : T(0);
+        r[kC3] = in ? a.a1[g0 + k * width] : T(0);
       }
     }
   }
@@ -520,8 +731,8 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
     const T* xc = s_xc + (SPLIT ? m * nas : 0);
     const T* xp = s_xp + (SPLIT ? m * nas : 0);
     const T* xa = s_xa + (SPLIT ? m * nas : 0);
-    // the lane's a0 from point n = lane on, with stride `team`
-    const T* l_a0 = a.a0 + (SPLIT ? m * ns : 0) + lane;
+    // the lane's a0 from point n = pl on, with stride `width`
+    const T* l_a0 = a.a0 + (SPLIT ? m * ns : 0) + pl;
 
     T sq = T(0), cq = T(1), asq = T(0), acq = T(1);
     if (KIND != kSeSe) dsincos(c.freq * q, &sq, &cq);
@@ -538,14 +749,14 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
     if constexpr (IMPLICIT) {
       // aux-GP warm start; its q- and p-factors share one exp
       T mean[1] = {T(0)};
-      for (int j = 0, n = lane; j < naux; ++j, n += team) {
+      for (int j = 0, n = pl; j < naux; ++j, n += width) {
         const T d = xs[n] - q;  // se_se only
         const T sh = xs[n] * acq - xc[n] * asq;
         const T sa = qfactors<AUX_KIND>(d, sh, T(0), c.ai2, T(0), T(0)).s;
         const T dpa = xp[n] - p;
         mean[0] += xa[n] * dexp(-(sa + dpa * dpa * c.haly2));
       }
-      team_sum(mean, a, s_red, parity);
+      team_sum(mean, a, s_red, parity, x);
       P = mean[0] + c.delta * p;
     }
 
@@ -560,7 +771,7 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
     T pgp[1] = {T(0)};
 #pragma unroll
     for (int k0 = 0; k0 < PM; k0 += kPairs) {
-      if (k0 < np) {
+      if (CLUSTER || k0 < np) {
 #pragma unroll
         for (int k = k0; k < k0 + kPairs; ++k) {
           T* r = rec + F * k;
@@ -568,7 +779,7 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
           const T d = sk - q;  // se_se only
           const T sh = sk * cq - ck * sq;
           const T ch = ck * cq + sk * sq;
-          const T w0 = k * team < last ? __ldg(l_a0 + k * team) : T(0);
+          const T w0 = k * width < last ? __ldg(l_a0 + k * width) : T(0);
           const QF<T> g = qfactors<KIND>(d, sh, ch, c.i2, c.k1, c.k2);
           if constexpr (MODE == kSum) {
             pgp[0] += w0 * (g.spp - g.sp * g.sp) * dexp(-g.s);
@@ -590,7 +801,7 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
       }
     }
     if constexpr (!IMPLICIT) {
-      team_sum(pgp, a, s_red, parity);
+      team_sum(pgp, a, s_red, parity, x);
       P = p - pgp[0];
     }
 
@@ -599,7 +810,7 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
       T v[2] = {T(0), T(0)};  // f, f'
 #pragma unroll
       for (int k0 = 0; k0 < PM; k0 += kPairs) {
-        if (k0 < np) {
+        if (CLUSTER || k0 < np) {
 #pragma unroll
           for (int k = k0; k < k0 + kPairs; ++k) {
             const T* r = rec + F * k;
@@ -612,7 +823,7 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
           }
         }
       }
-      team_sum(v, a, s_red, parity);
+      team_sum(v, a, s_red, parity, x);
       const T Pn = P - (v[0] - p + P) / (v[1] + T(1));
       if (isfinite(Pn)) P = Pn;
     }
@@ -626,7 +837,7 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
     T dq[1] = {T(0)};
 #pragma unroll
     for (int k0 = 0; k0 < PM; k0 += kPairs) {
-      if (k0 < np) {
+      if (CLUSTER || k0 < np) {
 #pragma unroll
         for (int k = k0; k < k0 + kPairs; ++k) {
           const T* r = rec + F * k;
@@ -642,7 +853,7 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
         }
       }
     }
-    team_sum(dq, a, s_red, parity);
+    team_sum(dq, a, s_red, parity, x);
     T Q = q + dq[0];
     if (c.mod_q > T(0)) Q = Q - dfloor(Q / c.mod_q) * c.mod_q;
     if (!isfinite(P)) Q = nan;
@@ -698,17 +909,20 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
       if (WRAP && nan_lost_pd && a.D) a.D[row] = nan;
     }
   }
+  if constexpr (CLUSTER) cluster_sync();  // no peer writes into it any more
 }
 
-template <typename T, int KIND, int AUX_KIND, bool SPLIT, int MODE, typename S>
+template <typename T, int KIND, int AUX_KIND, bool SPLIT, int MODE,
+          bool CLUSTER, typename S>
 cudaError_t launch_shape(const Args<T>& a, int teams, int threads,
-                         size_t smem, cudaStream_t stream) {
+                         size_t smem, int cluster, cudaStream_t stream) {
   if (threads > S::kThreads || a.np > S::kPM ||
       split_instance(a.n_maps, a.loss_at_new_q) != SPLIT ||
       smem < smem_elems(a.nas, a.compute, teams, a.npad, a.n_maps, SPLIT) *
                  sizeof(T))
     return cudaErrorInvalidValue;
-  void (*kern)(Args<T>) = rollout_kernel<T, KIND, AUX_KIND, SPLIT, MODE, S>;
+  void (*kern)(Args<T>) =
+      rollout_kernel<T, KIND, AUX_KIND, SPLIT, MODE, CLUSTER, S>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e == cudaSuccess)  // all of the SM's 256 KB for shared memory
@@ -716,41 +930,64 @@ cudaError_t launch_shape(const Args<T>& a, int teams, int threads,
         kern, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
   if (e != cudaSuccess) return e;
   const unsigned grid = unsigned((a.B + teams - 1) / teams);
-  kern<<<grid, threads, smem, stream>>>(a);
+  if constexpr (CLUSTER) {  // a cluster of `cluster` blocks an orbit
+    cudaLaunchAttribute dims;
+    dims.id = cudaLaunchAttributeClusterDimension;
+    dims.val.clusterDim.x = unsigned(cluster);
+    dims.val.clusterDim.y = dims.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(grid * unsigned(cluster));
+    cfg.blockDim = dim3(unsigned(threads));
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = &dims;
+    cfg.numAttrs = 1;
+    e = cudaLaunchKernelEx(&cfg, kern, a);
+    if (e != cudaSuccess) return e;
+  } else {
+    kern<<<grid, threads, smem, stream>>>(a);
+  }
   return cudaGetLastError();
 }
 
 // The instance the caller names: (points a lane holds, block threads,
-// blocks an SM), one of ops/cuda_step.py::INSTANCES.  float64's narrow
-// instance spills a few bytes at 96 registers, and is still the fastest:
-// float64's exp and sin/cos are long dependent chains that need the 18
-// warps an SM to hide them.
+// blocks an SM), one of ops/cuda_step.py::INSTANCES, and the blocks of a
+// cluster team (1: none).  float64's narrow instance spills a few bytes at
+// 96 registers, and is still the fastest: float64's exp and sin/cos are
+// long dependent chains that need the 18 warps an SM to hide them.
 template <typename T, int KIND, int AUX_KIND, bool SPLIT, int MODE,
-          typename S, typename... More>
-cudaError_t launch_instance(const Args<T>& a, const int (&inst)[3],
+          bool CLUSTER, typename S, typename... More>
+cudaError_t launch_instance(const Args<T>& a, const int (&inst)[4],
                             int teams, int threads, size_t smem,
                             cudaStream_t s) {
   if (inst[0] == S::kPM && inst[1] == S::kThreads && inst[2] == S::kBlocks)
-    return launch_shape<T, KIND, AUX_KIND, SPLIT, MODE, S>(a, teams, threads,
-                                                           smem, s);
+    return launch_shape<T, KIND, AUX_KIND, SPLIT, MODE, CLUSTER, S>(
+        a, teams, threads, smem, inst[3], s);
   if constexpr (sizeof...(More) > 0)
-    return launch_instance<T, KIND, AUX_KIND, SPLIT, MODE, More...>(
+    return launch_instance<T, KIND, AUX_KIND, SPLIT, MODE, CLUSTER, More...>(
         a, inst, teams, threads, smem, s);
   return cudaErrorInvalidValue;
 }
 
-template <typename T, int KIND, int AUX_KIND, bool SPLIT, int MODE>
-cudaError_t launch_shapes(const Args<T>& a, const int (&inst)[3], int teams,
+// The cluster instances: blocks of 256 lanes of up to 4 or 8 points and the
+// solver warp, one block an SM (ops/cuda_step.py::CLUSTER_INSTANCES)
+template <typename T, int KIND, int AUX_KIND, bool SPLIT, int MODE,
+          bool CLUSTER>
+cudaError_t launch_shapes(const Args<T>& a, const int (&inst)[4], int teams,
                           int threads, size_t smem, cudaStream_t s) {
-  if constexpr (sizeof(T) == 4)
-    return launch_instance<T, KIND, AUX_KIND, SPLIT, MODE, Shape<10, 288, 3>,
-                           Shape<16, 288, 2>, Shape<10, 512, 1>,
-                           Shape<16, 512, 1>>(a, inst, teams, threads, smem,
-                                              s);
+  if constexpr (CLUSTER)
+    return launch_instance<T, KIND, AUX_KIND, SPLIT, MODE, true,
+                           Shape<4, 288, 1>, Shape<8, 288, 1>>(
+        a, inst, teams, threads, smem, s);
+  else if constexpr (sizeof(T) == 4)
+    return launch_instance<T, KIND, AUX_KIND, SPLIT, MODE, false,
+                           Shape<10, 288, 3>, Shape<16, 288, 2>,
+                           Shape<10, 512, 1>, Shape<16, 512, 1>>(
+        a, inst, teams, threads, smem, s);
   else
-    return launch_instance<T, KIND, AUX_KIND, SPLIT, MODE, Shape<8, 288, 2>,
-                           Shape<16, 288, 1>>(a, inst, teams, threads, smem,
-                                              s);
+    return launch_instance<T, KIND, AUX_KIND, SPLIT, MODE, false,
+                           Shape<8, 288, 2>, Shape<16, 288, 1>>(
+        a, inst, teams, threads, smem, s);
 }
 
 // The instances of one library: SPLIT_MODES false holds every one-map
@@ -763,29 +1000,34 @@ constexpr bool holds(bool split, int mode) {
                      : !split || mode == kImplicit;
 }
 
+// The cluster instances are the implicit one-map mode's (rollout_step.cu):
+// `run` refuses a cluster team anywhere else.
 template <bool SPLIT_MODES, typename T, int KIND, int AUX_KIND, int MODE>
-cudaError_t launch(bool split, const Args<T>& a, const int (&inst)[3],
+cudaError_t launch(bool split, const Args<T>& a, const int (&inst)[4],
                    int teams, int threads, size_t smem, cudaStream_t s) {
   if constexpr (SPLIT_MODES && MODE == kImplicit)
     return cudaErrorInvalidValue;  // the other library's (holds())
   else if constexpr (SPLIT_MODES)
-    return launch_shapes<T, KIND, AUX_KIND, true, MODE>(a, inst, teams,
-                                                        threads, smem, s);
+    return launch_shapes<T, KIND, AUX_KIND, true, MODE, false>(
+        a, inst, teams, threads, smem, s);
   else if constexpr (MODE == kImplicit)
-    return split ? launch_shapes<T, KIND, AUX_KIND, true, MODE>(
+    return split ? launch_shapes<T, KIND, AUX_KIND, true, MODE, false>(
                        a, inst, teams, threads, smem, s)
-                 : launch_shapes<T, KIND, AUX_KIND, false, MODE>(
-                       a, inst, teams, threads, smem, s);
+           : inst[3] > 1
+               ? launch_shapes<T, KIND, AUX_KIND, false, MODE, true>(
+                     a, inst, teams, threads, smem, s)
+               : launch_shapes<T, KIND, AUX_KIND, false, MODE, false>(
+                     a, inst, teams, threads, smem, s);
   else
-    return launch_shapes<T, KIND, AUX_KIND, false, MODE>(a, inst, teams,
-                                                         threads, smem, s);
+    return launch_shapes<T, KIND, AUX_KIND, false, MODE, false>(
+        a, inst, teams, threads, smem, s);
 }
 
 // per_se (0) and per_se_freq (2) run the periodic instance, se_se (1) its
 // own; the explicit instances take no aux model
 template <bool SPLIT_MODES, typename T, int KIND>
 cudaError_t dispatch_aux(int mode, bool split, int aux_kind,
-                         const Args<T>& a, const int (&inst)[3], int teams,
+                         const Args<T>& a, const int (&inst)[4], int teams,
                          int threads, size_t smem, cudaStream_t s) {
   if (mode == kExplicit)
     return launch<SPLIT_MODES, T, KIND, kPeriodic, kExplicit>(
@@ -813,14 +1055,16 @@ int run(const T* scal, const T* uq, const T* uP, const T* a0, const T* a1,
         int nm, int iters, int kind, int aux_kind, int loss_check,
         int loss_at_new_q, int explicit_update, int mod_p, int track_pdiff,
         int team, int teams, int threads, int smem_bytes, int inst_points,
-        int inst_threads, int inst_blocks, void* stream) {
+        int inst_threads, int inst_blocks, int cluster, void* stream) {
   // the layout comes from ops/cuda_step.py::launch_geometry; refuse any the
   // kernel cannot run (a block is its teams' lanes, then a solver warp or
-  // not)
+  // not; a cluster team is one team a block, in the implicit one-map mode)
   int log_team = 0;
   while ((1 << log_team) < team) ++log_team;
   const int compute = team * teams;
-  const int np = (ns + team - 1) / team;
+  if (cluster < 1 || cluster > kClusterMax || (cluster & (cluster - 1)))
+    return int(cudaErrorInvalidValue);
+  const int np = (ns + team * cluster - 1) / (team * cluster);
   constexpr int kPairs = Lane<T>::kPairs;
   const int mode = explicit_update || kind == 3 ? (kind == 3 ? kSum
                                                              : kExplicit)
@@ -829,18 +1073,24 @@ int run(const T* scal, const T* uq, const T* uP, const T* a0, const T* a1,
   if (team < 1 || team > kMaxTeam || (1 << log_team) != team ||
       teams < 1 || compute % 32 != 0 || np > kPMax || B < 1 || n_maps < 1 ||
       (threads != compute && threads != compute + kSolverThreads) ||
-      (track_pdiff && D == nullptr) || !holds<SPLIT_MODES>(split, mode))
+      (track_pdiff && D == nullptr) || !holds<SPLIT_MODES>(split, mode) ||
+      (cluster > 1 &&
+       (SPLIT_MODES || split || mode != kImplicit || teams != 1 ||
+        (long long)B * cluster > 0x7fffffffLL)))
     return int(cudaErrorInvalidValue);
   // kind 3 (sum_per_se) runs Algorithm 2 on per_se's q-factors, at
   // frequency 1/2 (its packed frequency is 0)
+  // a cluster instance's rows hold all its points, padding included
+  const int npad =
+      cluster > 1 ? inst_points : (np + kPairs - 1) / kPairs * kPairs;
   const Args<T> a{scal, uq, uP, a0, a1, auxq, auxp, auxa, q0, p0, Q, P,
                   B, ns, nas, n_maps, nm, iters, loss_check, loss_at_new_q,
-                  team, log_team, np, (np + kPairs - 1) / kPairs * kPairs,
+                  team, log_team, np, npad,
                   record_fields(n_maps), compute, kind == 0 || kind == 3,
                   aux_kind == 0, track_pdiff ? D : nullptr};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = size_t(smem_bytes);
-  const int inst[3] = {inst_points, inst_threads, inst_blocks};
+  const int inst[4] = {inst_points, inst_threads, inst_blocks, cluster};
   switch (kind) {
     case 0: case 2:
       return int(dispatch_aux<SPLIT_MODES, T, kPeriodic>(
@@ -865,11 +1115,12 @@ int run(const T* scal, const T* uq, const T* uP, const T* a0, const T* a1,
 // product update (kind 3 always runs Algorithm 2); `mod_p` says the models
 // were packed with a mod_p (scal's column 8) to wrap P by; `track_pdiff`
 // writes the unwrapped momentum into D (null otherwise).  The layout comes
-// from ops/cuda_step.py::launch_geometry: `team` lanes per orbit, `teams`
-// orbits per block, a block of `threads` threads (team * teams compute
-// threads and, where the block has room, one solver warp), its dynamic
-// shared memory, and the kernel instance (points a lane holds, block
-// threads, blocks an SM).  The return value is the cudaError_t of the
+// from ops/cuda_step.py::launch_geometry: `team` lanes per orbit and block,
+// `teams` orbits per block, a block of `threads` threads (team * teams
+// compute threads and, where the block has room, one solver warp), its
+// dynamic shared memory, the kernel instance (points a lane holds, block
+// threads, blocks an SM) and `cluster`, the blocks of a cluster team (1:
+// an orbit's team in one block).  The return value is the cudaError_t of the
 // launch (0 on success); a launch of instances the library does not hold
 // (holds()) is refused.
 #define ROLLOUT_ENTRY(NAME, SPLIT_MODES, T)                                   \
@@ -880,10 +1131,10 @@ int run(const T* scal, const T* uq, const T* uP, const T* a0, const T* a1,
       int iters, int kind, int aux_kind, int loss_check, int loss_at_new_q,   \
       int explicit_update, int mod_p, int track_pdiff, int team, int teams,   \
       int threads, int smem_bytes, int inst_points, int inst_threads,         \
-      int inst_blocks, void* stream) {                                        \
+      int inst_blocks, int cluster, void* stream) {                           \
     return run<SPLIT_MODES, T>(                                               \
         scal, uq, uP, a0, a1, auxq, auxp, auxa, q0, p0, Q, P, D, B, ns, nas,  \
         n_maps, nm, iters, kind, aux_kind, loss_check, loss_at_new_q,         \
         explicit_update, mod_p, track_pdiff, team, teams, threads,            \
-        smem_bytes, inst_points, inst_threads, inst_blocks, stream);          \
+        smem_bytes, inst_points, inst_threads, inst_blocks, cluster, stream); \
   }

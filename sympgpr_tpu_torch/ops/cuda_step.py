@@ -17,11 +17,13 @@ the Split instances of the other modes.  Nothing falls back.
 ``rollout_in_kernel`` dispatches on the device of its inputs: CPU tensors
 go to the plain PyTorch version ``rollout_reference`` (the fast path of
 ``maps/fast_apply.py`` with fixed Newton iterations), CUDA tensors launch
-the kernel or raise.  ``LAUNCHES`` counts kernel launches.
+the kernel or raise.  ``LAUNCHES`` counts kernel launches,
+``LAUNCHES_CLUSTER`` those of them that ran cluster teams.
 
-The kernel runs one orbit on a team of lanes; ``launch_geometry`` picks
-the team size, the block and the kernel's instance for a batch and
-training-set size, and the kernel takes that layout as given.
+The kernel runs one orbit on a team of lanes, in one block or over a
+thread-block cluster; ``launch_geometry`` picks the team size, the block,
+the cluster and the kernel's instance for a batch, training-set size and
+mode, and the kernel takes that layout as given.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from sympgpr_tpu_torch.systems.tokamak import compute_r
 Tensor = torch.Tensor
 
 LAUNCHES = 0  # kernel launches made by rollout_in_kernel in this process
+LAUNCHES_CLUSTER = 0  # of them, launches whose orbits ran on cluster teams
 
 _KIND = {"per_se": 0, "se_se": 1, "per_se_freq": 2, "sum_per_se": 3}
 _KIND_NAME = {v: k for k, v in _KIND.items()}
@@ -77,6 +80,27 @@ SM_COUNT = 132       # H100 SXM
 # for a solver warp, so its block solves the loss boundary on the step's
 # chain; it runs only where 256 lanes cannot hold the slice
 FILL_TEAM_MAX = 256
+# A cluster team: one orbit's team over a thread-block cluster of up to
+# CLUSTER_MAX blocks (the portable cluster size), FILL_TEAM_MAX lanes and
+# the solver warp a block, one block an SM, run by the kernel's cluster
+# instances in the implicit one-map mode at the old q: lanes of up to 4
+# or 8 points (CLUSTER_INSTANCES, the first that holds the lane's points),
+# whose rows hold all the instance's points, padding included.  A cluster
+# sum costs ~0.1 us more than a block's, which only the lanes' share of
+# the points pays for.  On an H100 (PERF.md §6, tools/rollout_ab.py
+# --cluster; 30 x 1000 float32): lanes of 4 points gain nothing (N = 1024:
+# 4.9 ms in one block, 5.1 over 2 blocks), hence CLUSTER_MIN_POINTS; at
+# N = 4096 2 blocks of lanes of 8 points tie with 4 of 4 (5.6 and 5.7 ms
+# against 7.9), at N = 2048 2 blocks win (5.1 against 5.7 over 4), and
+# float64's heavier points want 4 (30 x 100 at N = 4096: 2.0, 1.2 and 0.9
+# ms over 1, 2 and 4 blocks), hence CLUSTER_POINTS by dtype: the fewest
+# blocks whose lanes hold at most that many points.
+CLUSTER_MAX = 8
+CLUSTER_INSTANCES = ((4, 288, 1), (8, 288, 1))
+CLUSTER_MIN_POINTS = 4
+CLUSTER_POINTS = {torch.float32: 8, torch.float64: 4}
+# the kernel's update of a step (csrc/rollout_kernel.cuh, Mode)
+MODES = ("implicit", "implicit_wrap", "explicit", "sum")
 
 
 def max_threads(dtype: torch.dtype) -> int:
@@ -100,7 +124,10 @@ class Geometry:
     ``teams_per_block`` orbits in a block of ``threads`` threads (the
     teams' lanes, and a solver warp where the block has room for one)
     with ``smem_bytes`` of dynamic shared memory, run by the kernel's
-    ``instance`` (an entry of ``INSTANCES``)."""
+    ``instance`` (an entry of ``INSTANCES``, or of ``CLUSTER_INSTANCES``).
+    With ``cluster`` > 1 an orbit's team is ``cluster`` blocks of
+    ``team`` lanes each, one team a block, and ``per_lane`` counts the
+    points of a lane of that whole team."""
 
     team: int
     per_lane: int
@@ -108,6 +135,7 @@ class Geometry:
     threads: int
     smem_bytes: int
     instance: tuple[int, int, int]
+    cluster: int = 1
 
 
 def split_instance(n_maps: int, loss_at_new_q: bool) -> bool:
@@ -116,12 +144,27 @@ def split_instance(n_maps: int, loss_at_new_q: bool) -> bool:
     return n_maps > 1 or loss_at_new_q
 
 
+def kernel_mode(kind: int, explicit: bool, mod_p: bool,
+                track_pdiff: bool) -> str:
+    """The kernel's update (one of ``MODES``) for a launch of kernel kind
+    ``kind``: Algorithm 2 for kind 3, else the explicit update, else the
+    implicit map, with the mod_p wrap and pdiff where either is asked
+    for."""
+    if kind == 3:
+        return "sum"
+    if explicit:
+        return "explicit"
+    return "implicit_wrap" if mod_p or track_pdiff else "implicit"
+
+
 def launch_geometry(B: int, ns: int, nas: int, dtype: torch.dtype,
                     sm_count: int = SM_COUNT,
                     team: int | None = None, n_maps: int = 1,
-                    loss_at_new_q: bool = False) -> Geometry:
-    """Team, block and instance for a batch of ``B`` orbits over ``ns``
-    training and ``nas`` aux points of each of ``n_maps`` sub-maps.
+                    loss_at_new_q: bool = False, mode: str = "implicit",
+                    cluster: int | None = None) -> Geometry:
+    """Team, block, cluster and instance for a batch of ``B`` orbits over
+    ``ns`` training and ``nas`` aux points of each of ``n_maps`` sub-maps,
+    in the kernel's ``mode`` (``kernel_mode``).
 
     The team is the smallest power of two whose lanes hold no more points
     than an instance that shares its SM with other blocks takes (or the
@@ -137,6 +180,18 @@ def launch_geometry(B: int, ns: int, nas: int, dtype: torch.dtype,
     worth), fewer when the batch is small, so that it spreads over the
     SMs.  The instance is the first of ``INSTANCES[dtype]`` that holds the
     lane's points and the block's threads.
+
+    Then the cluster: where the mode is the implicit one-map map at the
+    old q and the team is at least ``FILL_TEAM_MAX`` lanes of more than
+    ``CLUSTER_MIN_POINTS`` points, an orbit's team becomes a cluster of C
+    blocks of ``FILL_TEAM_MAX`` lanes each (one team a block, one block an
+    SM): the smallest power of two C >= 2 whose lanes hold at most
+    ``CLUSTER_POINTS[dtype]`` points, at most ``CLUSTER_MAX``, halved
+    while ``B * C > sm_count``; none if C falls to 1 or its lanes do not
+    fit ``CLUSTER_INSTANCES``.
+    ``cluster`` forces the blocks of a cluster team instead (1: none),
+    over the team the rule picks (widened to a warp) or the forced one (a
+    warp or more); a forced ``team`` alone takes no cluster.
     Shared memory: the aux tables (4 columns of each sub-map), two slots
     of per-warp partial sums, two of the loss-check staging (3 values per
     team), a row per lane (``FIELDS`` values for each of its points, and
@@ -152,34 +207,64 @@ def launch_geometry(B: int, ns: int, nas: int, dtype: torch.dtype,
                          f"{P_MAX}); got {ns}")
     if n_maps < 1:
         raise ValueError(f"need n_maps >= 1; got {n_maps}")
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r}: need one of {MODES}")
     elt = torch.empty((), dtype=dtype).element_size()
     instances = INSTANCES[dtype]
+    one_map = mode == "implicit" and not split_instance(n_maps,
+                                                        loss_at_new_q)
 
-    def layout(team: int) -> Geometry:
+    def layout(team: int, cluster: int = 1) -> Geometry:
         warp_teams = max(1, 32 // team)  # teams that make up one warp
         tpb = min(max(1, BLOCK_THREADS // team), max(1, -(-B // sm_count)))
-        tpb = -(-tpb // warp_teams) * warp_teams
+        tpb = -(-tpb // warp_teams) * warp_teams if cluster == 1 else 1
         compute = team * tpb
-        per_lane = -(-ns // team)
+        per_lane = -(-ns // (team * cluster))
         pairs = PAIRS[dtype]
         fields = FIELDS + FIELDS_PER_MAP * (n_maps - 1)
-        row = fields * (-(-per_lane // pairs) * pairs) + 1
+        inst = None
+        if cluster > 1:
+            inst = next((i for i in CLUSTER_INSTANCES if i[0] >= per_lane),
+                        CLUSTER_INSTANCES[-1])
+        records = inst[0] if inst else -(-per_lane // pairs) * pairs
+        row = fields * records + 1
         consts = NSCAL * n_maps if split_instance(n_maps,
                                                   loss_at_new_q) else 0
         smem = (4 * n_maps * nas + 4 * (compute // 32) + 6 * tpb
                 + row * compute + consts) * elt
         threads = compute + (SOLVER_THREADS if compute + SOLVER_THREADS
                              <= max_threads(dtype) else 0)
-        inst = next(i for i in instances
-                    if i[0] >= per_lane and i[1] >= threads)
-        return Geometry(team, per_lane, tpb, threads, smem, inst)
+        if inst is None:
+            inst = next(i for i in instances
+                        if i[0] >= per_lane and i[1] >= threads)
+        return Geometry(team, per_lane, tpb, threads, smem, inst, cluster)
+
+    def clustered(team: int, cluster: int) -> Geometry:
+        if cluster not in (2, 4, 8):
+            raise ValueError(f"cluster {cluster}: need 1, 2, 4 or 8")
+        if not one_map:
+            raise ValueError("a cluster team runs the implicit one-map mode "
+                             "at the old q only")
+        g = layout(max(32, team), cluster)
+        pm, threads, _ = g.instance
+        if g.per_lane > pm or g.threads > threads:
+            raise ValueError(
+                f"cluster {cluster} of {g.team}-lane blocks: lanes of "
+                f"{g.per_lane} points in blocks of {g.threads} threads; the "
+                f"cluster instance holds {pm} and {threads}")
+        return g
 
     if team is not None:
         if (team < 1 or team > widest or team & (team - 1)
                 or -(-ns // team) > P_MAX):
             raise ValueError(f"team {team}: need a power of two <= "
                              f"{widest} with ceil({ns} / team) <= {P_MAX}")
-        return layout(team)
+        if cluster in (None, 1):
+            return layout(team)
+        if team < 32:
+            raise ValueError(f"team {team}: a cluster team's block holds "
+                             f"at least a warp of lanes")
+        return clustered(team, cluster)
     shared = max(p for p, _, blocks in instances if blocks > 1)
     narrowest = 1
     while -(-ns // narrowest) > shared and narrowest < widest:
@@ -193,7 +278,21 @@ def launch_geometry(B: int, ns: int, nas: int, dtype: torch.dtype,
         team *= 2
     while team > narrowest and layout(team).smem_bytes > SMEM_LIMIT:
         team //= 2
-    return layout(team)
+    if cluster is not None:
+        return layout(team) if cluster == 1 else clustered(team, cluster)
+    g = layout(team)
+    if (not one_map or team < FILL_TEAM_MAX
+            or g.per_lane <= CLUSTER_MIN_POINTS):
+        return g
+    c = 2
+    while (c < CLUSTER_MAX
+           and -(-ns // (FILL_TEAM_MAX * c)) > CLUSTER_POINTS[dtype]):
+        c *= 2
+    while c > 1 and B * c > sm_count:
+        c //= 2
+    if c == 1 or -(-ns // (FILL_TEAM_MAX * c)) > CLUSTER_INSTANCES[-1][0]:
+        return g
+    return layout(FILL_TEAM_MAX, c)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -395,7 +494,8 @@ def rollout_reference(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int,
 
 def _validate(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int,
               iters: int, team: int | None = None,
-              loss_at_new_q: bool = False) -> Geometry:
+              loss_at_new_q: bool = False, mode: str = "implicit",
+              cluster: int | None = None) -> Geometry:
     """Raise on anything the kernel does not take; else its geometry."""
     dev, dtype = q0.device, q0.dtype
     if dtype not in (torch.float32, torch.float64):
@@ -421,7 +521,7 @@ def _validate(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int,
     sm_count = (torch.cuda.get_device_properties(dev).multi_processor_count
                 if dev.type == "cuda" else SM_COUNT)
     geo = launch_geometry(q0.shape[0], pm.ns, pm.nas, dtype, sm_count, team,
-                          M, loss_at_new_q)
+                          M, loss_at_new_q, mode, cluster)
     if geo.smem_bytes > SMEM_LIMIT:
         raise ValueError(
             f"aux tables ({M} x {pm.nas} points, {dtype}) need "
@@ -430,7 +530,7 @@ def _validate(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int,
     return geo
 
 
-_ARGS = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 20 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 21 + [ctypes.c_void_p]
 
 
 def _library(pm: PackedModels, loss_at_new_q: bool, explicit: bool,
@@ -449,14 +549,18 @@ def _library(pm: PackedModels, loss_at_new_q: bool, explicit: bool,
 def _launch(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int, iters: int,
             loss_check: bool, team: int | None = None,
             loss_at_new_q: bool = False, explicit: bool = False,
-            track_pdiff: bool = False):
+            track_pdiff: bool = False, cluster: int | None = None):
     """Launch the kernel on CUDA tensors; ``team`` forces the lanes per
-    orbit (``launch_geometry`` chooses by default).  Returns (Q, P), or
-    (Q, P, D) with ``track_pdiff``."""
-    global LAUNCHES
+    orbit (a block's), ``cluster`` the blocks of a cluster team
+    (``launch_geometry`` chooses by default).  Returns (Q, P), or (Q, P,
+    D) with ``track_pdiff``."""
+    global LAUNCHES, LAUNCHES_CLUSTER
     dev, dtype = q0.device, q0.dtype
     with span("sympgpr::rollout.validate"):
-        geo = _validate(pm, q0, p0, nm, iters, team, loss_at_new_q)
+        mode = kernel_mode(pm.kind, explicit, pm.mod_p is not None,
+                           track_pdiff)
+        geo = _validate(pm, q0, p0, nm, iters, team, loss_at_new_q, mode,
+                        cluster)
         lib = _library(pm, loss_at_new_q, explicit, track_pdiff)
     B = q0.shape[0]
     sym = f"{lib}_f32" if dtype == torch.float32 else f"{lib}_f64"
@@ -473,9 +577,11 @@ def _launch(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int, iters: int,
                 pm.n_maps, nm, iters, pm.kind, pm.aux_kind, int(loss_check),
                 int(loss_at_new_q), int(explicit), int(pm.mod_p is not None),
                 int(track_pdiff), geo.team, geo.teams_per_block, geo.threads,
-                geo.smem_bytes, *geo.instance, _build.stream(dev))
+                geo.smem_bytes, *geo.instance, geo.cluster,
+                _build.stream(dev))
         _build.check(rc, "rollout kernel")
     LAUNCHES += 1
+    LAUNCHES_CLUSTER += geo.cluster > 1
     return (Q, P, D) if track_pdiff else (Q, P)
 
 

@@ -237,6 +237,98 @@ def test_kernel_float64_at_n4096(cuda):
     assert max(_diff(Qk, Qr), _diff(Pk, Pr)) <= 1e-9
 
 
+# --- cluster teams: one orbit over a thread-block cluster -----------------
+
+CLUSTERS = [1, 2, 4, 8]
+
+
+@pytest.fixture(scope="module")
+def cluster_models():
+    """tokamak_large's shape (N = 4096 training points) as toy models,
+    packed in float32 and float64, and 30 initial conditions whose P is
+    0.2 or more from 0 (the toy map keeps P's sign), half of them below:
+    those orbits are lost at once, the others never, in every summation
+    order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    pms = {dt: _team_models("per_se", 4096, dt, dev)
+           for dt in (torch.float32, torch.float64)}
+    q0, p0 = (torch.tensor(x, dtype=torch.float64, device=dev)
+              for x in ics(5, b=30))
+    p0 = torch.where(p0 < 0, p0 - 0.2, p0 + 0.2)
+    return pms, q0, p0
+
+
+@pytest.mark.parametrize("cluster", CLUSTERS)
+def test_cluster_team_float32(cluster_models, cluster):
+    """A forced cluster of C blocks at 30 x 200, N = 4096: the NaN pattern
+    of the one-block team and of the plain version; steps 1-2 within 3x
+    the plain float32 error against the float64 rollout of the same
+    columns (as test_kernel_forced_team_float32_large_n); the same bits
+    launch after launch; each cluster launch counted."""
+    from sympgpr_tpu_torch import profiling
+
+    pms, q0, p0 = cluster_models
+    pm, q0, p0 = pms[torch.float32], q0.float(), p0.float()
+    geo = cs.launch_geometry(30, pm.ns, pm.nas, torch.float32,
+                             cluster=cluster)
+    assert geo.cluster == cluster and geo.per_lane == 16 // cluster
+    before = profiling.launch_counts()
+    Qk, Pk = cs._launch(pm, q0, p0, 200, 5, loss_check=True,
+                        cluster=cluster)
+    after = profiling.launch_counts()
+    assert after["rollout"] == before["rollout"] + 1
+    assert after["rollout_cluster"] == before["rollout_cluster"] + (
+        cluster > 1)
+    Q1, P1 = cs._launch(pm, q0, p0, 200, 5, loss_check=True, cluster=1)
+    Qr, Pr = cs.rollout_reference(pm, q0, p0, 200, loss_check=True)
+    lost = torch.isnan(Pr)
+    assert 0 < int(lost[-1].sum()) < 30
+    assert torch.equal(torch.isnan(Pk), lost)
+    assert torch.equal(torch.isnan(P1), lost)
+    assert torch.equal(torch.isnan(Qk), torch.isnan(Qr))
+    exact = dataclasses.replace(
+        pm, **{f: getattr(pm, f).double() for f in (
+            "uq", "uP", "a0", "a1", "auxq", "auxp", "auxa", "scal")})
+    Qx, Px = cs.rollout_reference(exact, q0.double(), p0.double(), 3,
+                                  loss_check=True)
+
+    def err(Q, P) -> float:
+        d = torch.cat([Q[1:3].double() - Qx[1:3], P[1:3].double() - Px[1:3]])
+        return float(d[~torch.isnan(d)].norm())
+
+    assert err(Qk, Pk) <= 3 * err(Qr, Pr)
+    Q2, P2 = cs._launch(pm, q0, p0, 200, 5, loss_check=True,
+                        cluster=cluster)
+    assert torch.equal(Qk.view(torch.int32), Q2.view(torch.int32))
+    assert torch.equal(Pk.view(torch.int32), P2.view(torch.int32))
+
+
+def test_cluster_team_float64(cluster_models):
+    """float64 with a cluster of 4 blocks at 30 x 200, N = 4096: the NaN
+    pattern of the plain version; its first 100 rows within 1e-10 of it,
+    and all 200 within 3x the one-block team's own distance from it (two
+    summation orders of 4096-point float64 sums part by ~1e-10 over 200
+    steps: on an H100 7.7e-11 in one block, 1.02e-10 over 4, 7.7e-11 and
+    7.7e-11 over the first 100 rows); the launch's rule takes the same
+    cluster by itself (one cluster launch)."""
+    pms, q0, p0 = cluster_models
+    pm = pms[torch.float64]
+    Qk, Pk = cs._launch(pm, q0, p0, 200, 5, loss_check=True, cluster=4)
+    Q1, P1 = cs._launch(pm, q0, p0, 200, 5, loss_check=True, cluster=1)
+    Qr, Pr = cs.rollout_reference(pm, q0, p0, 200, loss_check=True)
+    assert torch.equal(torch.isnan(Pk), torch.isnan(Pr))
+    assert max(_diff(Qk[:100], Qr[:100]), _diff(Pk[:100], Pr[:100])) <= 1e-10
+    assert max(_diff(Qk, Qr), _diff(Pk, Pr)) <= 3 * max(_diff(Q1, Qr),
+                                                        _diff(P1, Pr))
+    before = cs.LAUNCHES_CLUSTER
+    Qa, Pa = cs.rollout_in_kernel(pm, q0, p0, 200, loss_check=True)
+    assert cs.LAUNCHES_CLUSTER == before + 1
+    for a, b in ((Qa, Qk), (Pa, Pk)):  # the same bits, NaN rows too
+        assert torch.equal(a.view(torch.int64), b.view(torch.int64))
+
+
 # --- Split cycling and the loss check at the new q -------------------------
 
 # forced team sizes over M = 1, 2 and 4 sub-maps of different sizes (row i

@@ -346,7 +346,7 @@ def test_validate_rejects_bad_inputs():
     for p, q, pp in ((pm, q0, p0), (pm64, q0.double(), p0.double())):
         geo = cs._validate(dataclasses.replace(p, ns=4096, nas=512), q,
                            pp, 3, 5)
-        assert geo.team * geo.per_lane >= 4096
+        assert geo.team * geo.cluster * geo.per_lane >= 4096  # all lanes
         assert geo.per_lane <= cs.P_MAX
         assert cs.ns_max(q.dtype) == cs.team_max(q.dtype) * cs.P_MAX >= 4096
         for ns in (cs.ns_max(q.dtype) + 8, 1024 * cs.P_MAX + 8):
@@ -369,7 +369,11 @@ GEOMETRY_CASES = [  # B, ns, nas: the main path's shapes and ragged ones
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("B,ns,nas", GEOMETRY_CASES)
 def test_launch_geometry(B, ns, nas, dtype):
-    g = cs.launch_geometry(B, ns, nas, dtype)
+    """The one-block layout (``cluster=1``) by its rules, then the
+    cluster the rule adds to it where a small batch leaves SMs idle."""
+    _cluster_rule(cs.launch_geometry(B, ns, nas, dtype), B, ns, nas, dtype)
+    g = cs.launch_geometry(B, ns, nas, dtype, cluster=1)
+    assert g.cluster == 1
     team_max, max_threads = cs.team_max(dtype), cs.max_threads(dtype)
     assert g.team & (g.team - 1) == 0 and 1 <= g.team <= team_max <= 1024
     assert g.per_lane * g.team >= ns and g.per_lane <= cs.P_MAX
@@ -411,6 +415,114 @@ def test_launch_geometry(B, ns, nas, dtype):
                             + 6 * g.teams_per_block
                             + (cs.FIELDS * records + 1) * compute) * elt
     assert g.smem_bytes <= cs.SMEM_LIMIT
+
+
+def _cluster_rule(g, B, ns, nas, dtype):
+    """``g`` is the one-block layout, or the cluster team the rule puts
+    in its place where the one-block team is FILL_TEAM_MAX lanes or more
+    of more than CLUSTER_MIN_POINTS points: the fewest blocks of
+    FILL_TEAM_MAX lanes (a power of two C, 2 <= C <= CLUSTER_MAX) whose
+    lanes hold at most CLUSTER_POINTS[dtype] points, halved while B C >
+    SM_COUNT, whose lanes fit a cluster instance."""
+    one = cs.launch_geometry(B, ns, nas, dtype, cluster=1)
+
+    def lanes(c):
+        return -(-ns // (cs.FILL_TEAM_MAX * c))
+
+    c = next(c for c in (2, 4, 8) if c == cs.CLUSTER_MAX
+             or lanes(c) <= cs.CLUSTER_POINTS[dtype])
+    while c > 1 and B * c > cs.SM_COUNT:
+        c //= 2
+    fits = c > 1 and lanes(c) <= cs.CLUSTER_INSTANCES[-1][0]
+    if (one.team < cs.FILL_TEAM_MAX or one.per_lane <= cs.CLUSTER_MIN_POINTS
+            or not fits):
+        assert g == one
+        return
+    elt = torch.empty((), dtype=dtype).element_size()
+    per_lane = -(-ns // (cs.FILL_TEAM_MAX * c))
+    inst = next(i for i in cs.CLUSTER_INSTANCES if i[0] >= per_lane)
+    records = inst[0]  # a cluster instance's rows hold all its points
+    compute = cs.FILL_TEAM_MAX
+    assert (g.cluster, g.team, g.per_lane, g.teams_per_block, g.threads,
+            g.instance) == (c, compute, per_lane, 1,
+                            compute + cs.SOLVER_THREADS, inst)
+    assert g.smem_bytes == (4 * nas + 4 * compute // 32 + 6
+                            + (cs.FIELDS * records + 1) * compute) * elt
+    assert g.smem_bytes <= min(one.smem_bytes, cs.SMEM_LIMIT)
+    assert B * g.cluster <= cs.SM_COUNT
+
+
+CLUSTER_CASES = [  # B, ns, nas, dtype, keywords, cluster; the parent's
+    # one-block layout (team, teams a block, threads, shared memory,
+    # instance) where the cluster is 1, else the points of a lane
+    (30, 4096, 512, torch.float32, {}, 2, 8),
+    (30, 4096, 512, torch.float64, {}, 4, 4),
+    (32768, 80, 80, torch.float32, {}, 1, (8, 32, 288, 64640, (10, 288, 3))),
+    (30, 80, 80, torch.float32, {}, 1, (64, 1, 96, 4664, (10, 288, 3))),
+    (4096, 4096, 512, torch.float32, {}, 1,
+     (256, 1, 288, 107672, (16, 288, 2))),
+    (37, 55, 55, torch.float64, {}, 1, (64, 1, 96, 5456, (8, 288, 2))),
+    (30, 72, 72, torch.float32, {"n_maps": 4}, 1,
+     (64, 1, 96, 14328, (10, 288, 3))),
+    (30, 4096, 512, torch.float32, {"loss_at_new_q": True}, 1,
+     (256, 1, 288, 107720, (16, 288, 2))),
+    (30, 4096, 512, torch.float32, {"mode": "implicit_wrap"}, 1,
+     (256, 1, 288, 107672, (16, 288, 2))),
+    (30, 1024, 512, torch.float32, {}, 1, (256, 1, 288, 33944, (10, 288, 3))),
+]
+
+
+@pytest.mark.parametrize("B,ns,nas,dtype,kw,cluster,parent", CLUSTER_CASES)
+def test_launch_geometry_cluster(B, ns, nas, dtype, kw, cluster, parent):
+    """The tokamak_large latency shape takes clusters of 2 blocks in
+    float32 (60 blocks, lanes of 8 points) and of 4 in float64 (120
+    blocks, lanes of 4); the batch shapes, the small-N shapes, the Split,
+    new-q and wrap modes and lanes of 4 points keep the parent's
+    one-block layout to the byte."""
+    g = cs.launch_geometry(B, ns, nas, dtype, **kw)
+    assert g.cluster == cluster
+    if cluster > 1:
+        assert (g.team, g.per_lane) == (256, parent)
+        assert g.instance == next(i for i in cs.CLUSTER_INSTANCES
+                                  if i[0] >= parent)
+        assert g.smem_bytes <= cs.SMEM_LIMIT
+        assert B * cluster <= cs.SM_COUNT
+        return
+    assert (g.team, g.teams_per_block, g.threads, g.smem_bytes,
+            g.instance) == parent
+    assert g == cs.launch_geometry(B, ns, nas, dtype, cluster=1, **kw)
+
+
+@pytest.mark.parametrize("kw,match", [
+    ({"cluster": 3}, "need 1, 2, 4 or 8"),
+    ({"cluster": 16}, "need 1, 2, 4 or 8"),
+    ({"cluster": 0}, "need 1, 2, 4 or 8"),
+    ({"cluster": 2, "mode": "explicit"}, "implicit one-map"),
+    ({"cluster": 4, "n_maps": 2}, "implicit one-map"),
+    ({"cluster": 4, "loss_at_new_q": True}, "implicit one-map"),
+    ({"cluster": 2, "ns": 8192}, "cluster instance holds 8"),
+    ({"cluster": 2, "team": 512, "ns": 8192}, "cluster instance"),
+    ({"cluster": 2, "team": 16, "ns": 200}, "at least a warp"),
+])
+def test_launch_geometry_cluster_forced_invalid(kw, match):
+    """A forced cluster the kernel cannot run raises: no power of two up
+    to CLUSTER_MAX, a mode without cluster instances, lanes or blocks
+    beyond the cluster instance's."""
+    args = dict(B=30, ns=kw.pop("ns", 4096), nas=512, dtype=torch.float32)
+    with pytest.raises(ValueError, match=match):
+        cs.launch_geometry(**args, **kw)
+
+
+@pytest.mark.parametrize("kind,explicit,mod_p,pdiff,mode", [
+    (0, False, False, False, "implicit"), (1, False, True, False,
+                                           "implicit_wrap"),
+    (2, False, False, True, "implicit_wrap"), (0, True, True, True,
+                                                "explicit"),
+    (3, False, False, False, "sum"), (3, True, True, False, "sum")])
+def test_kernel_mode(kind, explicit, mod_p, pdiff, mode):
+    assert cs.kernel_mode(kind, explicit, mod_p, pdiff) == mode
+    with pytest.raises(ValueError, match="mode"):
+        cs.launch_geometry(30, 80, 80, torch.float32, mode="wrap")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -478,14 +590,18 @@ def test_launch_geometry_forced_team():
     assert g.smem_bytes <= cs.SMEM_LIMIT
     # lanes of more than 10 (float32) or 8 (float64) points take the
     # instances that hold 16; float32's 512-lane team its 512-thread one
-    assert cs.launch_geometry(30, 4096, 512, torch.float32).instance == \
-        (16, 288, 2)
-    assert cs.launch_geometry(30, 4096, 512, torch.float64).instance == \
-        (16, 288, 1)
+    # (in one block: these shapes take cluster teams by default)
+    assert cs.launch_geometry(30, 4096, 512, torch.float32,
+                              cluster=1).instance == (16, 288, 2)
+    assert cs.launch_geometry(30, 4096, 512, torch.float64,
+                              cluster=1).instance == (16, 288, 1)
     assert cs.launch_geometry(30, 100, 100, torch.float64,
                               team=8).instance == (16, 288, 1)
-    assert cs.launch_geometry(30, 8192, 512, torch.float32).instance == \
-        (16, 512, 1)
+    assert cs.launch_geometry(30, 8192, 512, torch.float32,
+                              cluster=1).instance == (16, 512, 1)
+    # a forced team alone takes no cluster
+    assert cs.launch_geometry(30, 4096, 512, torch.float32,
+                              team=256).cluster == 1
 
 
 def test_rollout_model_matches_rollout_pallas():

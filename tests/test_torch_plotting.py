@@ -102,5 +102,5 @@ def test_launch_counts_read_and_zero():
     assert profiling.launch_counts()["rollout"] >= 2
     counts = profiling.launch_counts(zero=True)
     assert counts == {"cov_fwd": 0, "cov_bwd": 0, "syrk": 0, "trimm": 0,
-                      "rollout": 0}
+                      "rollout": 0, "rollout_cluster": 0}
     assert cuda_cov.LAUNCHES_FWD == 0

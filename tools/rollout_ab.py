@@ -2,7 +2,7 @@
 """Time the PyTorch port's fused rollout kernel of one or more checkouts of
 this repository in turns, on one CUDA card.
 
-    python tools/rollout_ab.py --trees OLD . . OLD [--sweep]
+    python tools/rollout_ab.py --trees OLD . . OLD [--sweep] [--cluster]
 
 Each entry of ``--trees`` is the root of a checkout; each runs in its own
 process, with its own ``sympgpr_tpu_torch`` package and kernel build, on
@@ -43,7 +43,13 @@ bytes, equal across checkouts whose kernels give the same bits.  ``--sweep`` als
 every team size the kernel takes, and each shape prints its geometry
 (checkouts whose kernel runs teams of lanes, ``launch_geometry``).
 ``--probe`` times the bench batch once more without the loss check and
-once with no Newton iteration.  Prints one JSON line per checkout and
+once with no Newton iteration.  ``--cluster`` times the implicit one-map
+rollout with the loss check at clusters of C = 1, 2, 4 and 8 blocks an
+orbit (``_launch(..., cluster=C)``; C = 1 is the one-block team) at
+30 x 1000 for N = 80, 1024, 2048 and 4096, 4096 x 256 at N = 4096 and
+32768 x 1000 at N = 80, with the cluster the launch's rule picks and a
+``digest`` for each C; a checkout without cluster teams times its own
+launch as C = 1.  Prints one JSON line per checkout and
 shape, one with the checkout's nvcc time for each rollout library it has
 (``build_s``: ``rollout_step.cu`` and, where the checkout has it,
 ``rollout_split_modes.cu``, one after the other, nothing built before them
@@ -78,7 +84,8 @@ MODELS = {  # name: training points, aux points, sub-maps
                                   1),
     "split_n70": (70, 70, 4), "split_n70_m1": (70, 70, 1),
     "stdmap_n20": (20, 20, 1), "stdmap_sum_n20": (20, 0, 1),
-    "stdmap_n4096": (4096, 512, 1)}
+    "stdmap_n4096": (4096, 512, 1), "n1024": (1024, 512, 1),
+    "n2048": (2048, 512, 1)}
 SHAPES = [  # name, model, orbits, steps, dtype
     *((name, model, batch, nm, "float32")
       for name, (batch, nm, model) in ROLLOUT_SHAPES.items()),
@@ -92,6 +99,15 @@ SHAPES = [  # name, model, orbits, steps, dtype
     ("stdmap_sum_32768x1000_n20", "stdmap_sum_n20", 32768, 1000, "float32"),
     ("stdmap_32768x1000_n20_f64", "stdmap_n20", 32768, 1000, "float64"),
     ("stdmap_large_30x200_n4096", "stdmap_n4096", 30, 200, "float32"),
+]
+CLUSTERS = (1, 2, 4, 8)
+CLUSTER_SHAPES = [  # name, model, orbits, steps (float32)
+    ("large_apply_30x1000_n4096", "n4096", 30, 1000),
+    ("30x1000_n2048", "n2048", 30, 1000),
+    ("30x1000_n1024", "n1024", 30, 1000),
+    ("ref_30x1000_n80", "n80", 30, 1000),
+    ("large_batch_4096x256_n4096", "n4096", 4096, 256),
+    ("bench_32768x1000_n80", "n80", 32768, 1000),
 ]
 
 
@@ -211,7 +227,38 @@ def _ptxas(build_dir: Path) -> dict:
     return {k: "; ".join(v) for k, v in out.items()}
 
 
-def run_one(tree: str, sweep: bool, probe: bool, reps: int) -> None:
+def cluster_sweep(tree: str, cs, models: dict, dev, reps: int) -> None:
+    """One JSON line per shape of ``CLUSTER_SHAPES``: ms (best of
+    ``reps``) and a digest of the trajectory for each forced cluster, and
+    the geometry the rule picks."""
+    import torch
+
+    clusters = hasattr(cs, "CLUSTER_MAX")
+    for name, model, batch, nm in CLUSTER_SHAPES:
+        if model not in models:
+            models[model] = _models(model, dev)
+        pm = cs.pack_models(*models[model][0], mod_q=2 * math.pi)
+        q0, p0 = _ics(dev, torch.float32, batch)
+        row = dict(tree=tree, cluster_sweep=name, orbits=batch, nm=nm,
+                   ns=pm.ns, nas=pm.nas, ms={}, digest={}, refused={})
+        for c in CLUSTERS if clusters else (1,):
+            kw = dict(cluster=c) if clusters else {}
+            try:
+                row["ms"][c] = _time(lambda: cs._launch(
+                    pm, q0, p0, nm, 5, True, **kw), reps)[0]
+            except (ValueError, RuntimeError) as e:
+                row["refused"][c] = str(e)
+                continue
+            row["digest"][c] = _digest(*cs._launch(pm, q0, p0, nm, 5, True,
+                                                   **kw))
+        row["geometry"] = cs.launch_geometry(
+            batch, pm.ns, pm.nas, torch.float32, torch.cuda
+            .get_device_properties(dev).multi_processor_count).__dict__
+        print(json.dumps(row), flush=True)
+
+
+def run_one(tree: str, sweep: bool, probe: bool, reps: int,
+            cluster: bool = False) -> None:
     # the tree's own package: importing chip_smoke above loaded this
     # checkout's
     for name in [m for m in sys.modules
@@ -281,10 +328,14 @@ def run_one(tree: str, sweep: bool, probe: bool, reps: int) -> None:
                    lost=int(torch.isnan(out[1][-1]).sum()),
                    digest=_digest(*out))
         if teams:
+            mode = ({"mode": cs.kernel_mode(
+                pm.kind, kw.get("explicit", False), pm.mod_p is not None,
+                kw.get("track_pdiff", False))}
+                if hasattr(cs, "kernel_mode") else {})
             geo = cs.launch_geometry(
                 batch, pm.ns, pm.nas, dtype, torch.cuda
                 .get_device_properties(dev).multi_processor_count,
-                **({"n_maps": len(pairs)} if split else {}))
+                **({"n_maps": len(pairs)} if split else {}), **mode)
             row["geometry"] = geo.__dict__
         if sweep and teams:
             row["team_ms"] = {}
@@ -303,6 +354,10 @@ def run_one(tree: str, sweep: bool, probe: bool, reps: int) -> None:
             row["iters0_ms"] = _time(lambda: cs.rollout_in_kernel(
                 pm, q0, p0, nm, iters=0, loss_check=True), reps)[0]
         print(json.dumps(row), flush=True)
+    if cluster:
+        cluster_sweep(tree, cs, {k: v for k, v in models.items()
+                                 if not isinstance(v, ImportError)}, dev,
+                      max(1, reps // 2))
     print(json.dumps(dict(tree=tree, build_s=build_s,
                           ptxas=_ptxas(_build.BUILD_DIR))), flush=True)
 
@@ -313,15 +368,17 @@ def main() -> None:
     ap.add_argument("--one", help=argparse.SUPPRESS)
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--probe", action="store_true")
+    ap.add_argument("--cluster", action="store_true")
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args()
     if args.one:
-        run_one(args.one, args.sweep, args.probe, args.reps)
+        run_one(args.one, args.sweep, args.probe, args.reps, args.cluster)
         return
     for tree in args.trees:
         cmd = [sys.executable, __file__, "--one", tree, "--reps",
                str(args.reps)] + (["--sweep"] if args.sweep else []) \
-            + (["--probe"] if args.probe else [])
+            + (["--probe"] if args.probe else []) \
+            + (["--cluster"] if args.cluster else [])
         subprocess.run(cmd, check=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
