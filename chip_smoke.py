@@ -555,7 +555,7 @@ def phase_split_main(dev):
 
     for k in evals:
         setattr(likelihood, k, counted(k))
-    cuda_step.LAUNCHES = 0
+    cuda_step.LAUNCHES = cuda_step.LAUNCHES_SPLIT = 0
     t0 = time.perf_counter()
     try:
         out = wl.run(cfg, optimizer="cmaes", backend="kernel",
@@ -566,6 +566,7 @@ def phase_split_main(dev):
             setattr(likelihood, k, fn)
     wall = time.perf_counter() - t0
     launches = cuda_step.LAUNCHES
+    launches_split = cuda_step.LAUNCHES_SPLIT
     (r0, th0), _ = tk.test_initial_conditions(cfg)
     t0 = time.perf_counter()
     out.update(wl.one_turn_gd(cfg, out["traj"], r0, th0, dev))
@@ -579,11 +580,13 @@ def phase_split_main(dev):
                ms_per_nll_evaluation=1e3 * out["t_train"]
                / sum(evals.values()), t_apply=out["t_apply"],
                wall_s=wall, t_one_turn_reference=t_gd, launches=launches,
+               launches_split=launches_split,
                hyps=[h.tolist() for h in out["hyps"]], sigs=out["sigs"],
                dtype=str(out["traj"].q.dtype),
                shape=list(out["traj"].q.shape))
     emit("split_main", **res)
     assert launches >= 1, "the Split path launched no rollout kernel"
+    assert launches_split > 0, "the Split path launched no Split instance"
     assert res["training_error"] < GATE_TRAIN_ERR_SPLIT, res
     assert res["median_gd"] < GATE_MEDIAN_GD, res
     assert res["n_lost"] <= GATE_LOST, res
@@ -995,7 +998,7 @@ def phase_large_n_main(dev) -> dict:
                main_s=t_main, wall_s=time.perf_counter() - t0)
     emit("large_n_main", **res)
     for k, count in launches.items():  # its rollouts run no cluster team
-        assert count > 0 or k == "rollout_cluster", \
+        assert count > 0 or k in ("rollout_cluster", "rollout_split"), \
             f"large_n launched no {k} kernel"
     assert set(m["launches"]) == set(large_n.STAGE_KERNELS), m["launches"]
     for stage, kernels in large_n.STAGE_KERNELS.items():
@@ -1523,8 +1526,9 @@ def phase_stdmap_large(dev):
                gate_one_step_mse=GATE_STDMAP_LARGE_MSE,
                verdict_one_step_mse_tpu_run=VERDICT_STDMAP_LARGE_MSE_TPU)
     emit("stdmap_large", **res)
-    for k, n in launches.items():  # the wrap mode runs no cluster team
-        assert n > 0 or k == "rollout_cluster", \
+    # the wrap mode runs no cluster team and one map at the old q
+    for k, n in launches.items():
+        assert n > 0 or k in ("rollout_cluster", "rollout_split"), \
             f"standard_map_large launched no {k} kernel"
     assert out["nll_decreased"], res
     assert out["finite_frac"] == 1.0 and out["pdiff_finite"], res
@@ -2143,8 +2147,9 @@ def phase_bench_main(dev, smi: str, models) -> dict:
     assert math.isfinite(diag["ref_size_mean_Eosc"]), diag
     assert isinstance(large, dict) and isinstance(tok, dict)
     assert detail["nuts_samples_per_s"] > 0, detail
-    for k, n in diag["launches"].items():  # its cut sizes take no cluster
-        assert n > 0 or k == "rollout_cluster", \
+    # its cut sizes take no cluster, its maps one map at the old q
+    for k, n in diag["launches"].items():
+        assert n > 0 or k in ("rollout_cluster", "rollout_split"), \
             f"bench launched no {k} kernel"
     f32, spread = check["first_rows"], check["every_10th_row"]
     assert check["launches"] > 0, check

@@ -18,7 +18,8 @@ the Split instances of the other modes.  Nothing falls back.
 go to the plain PyTorch version ``rollout_reference`` (the fast path of
 ``maps/fast_apply.py`` with fixed Newton iterations), CUDA tensors launch
 the kernel or raise.  ``LAUNCHES`` counts kernel launches,
-``LAUNCHES_CLUSTER`` those of them that ran cluster teams.
+``LAUNCHES_CLUSTER`` those of them that ran cluster teams and
+``LAUNCHES_SPLIT`` those that ran a Split instance (``split_instance``).
 
 The kernel runs one orbit on a team of lanes, in one block or over a
 thread-block cluster; ``launch_geometry`` picks the team size, the block,
@@ -46,6 +47,7 @@ Tensor = torch.Tensor
 
 LAUNCHES = 0  # kernel launches made by rollout_in_kernel in this process
 LAUNCHES_CLUSTER = 0  # of them, launches whose orbits ran on cluster teams
+LAUNCHES_SPLIT = 0  # of them, launches of a Split instance (split_instance)
 
 _KIND = {"per_se": 0, "se_se": 1, "per_se_freq": 2, "sum_per_se": 3}
 _KIND_NAME = {v: k for k, v in _KIND.items()}
@@ -554,7 +556,7 @@ def _launch(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int, iters: int,
     orbit (a block's), ``cluster`` the blocks of a cluster team
     (``launch_geometry`` chooses by default).  Returns (Q, P), or (Q, P,
     D) with ``track_pdiff``."""
-    global LAUNCHES, LAUNCHES_CLUSTER
+    global LAUNCHES, LAUNCHES_CLUSTER, LAUNCHES_SPLIT
     dev, dtype = q0.device, q0.dtype
     with span("sympgpr::rollout.validate"):
         mode = kernel_mode(pm.kind, explicit, pm.mod_p is not None,
@@ -582,6 +584,7 @@ def _launch(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int, iters: int,
         _build.check(rc, "rollout kernel")
     LAUNCHES += 1
     LAUNCHES_CLUSTER += geo.cluster > 1
+    LAUNCHES_SPLIT += split_instance(pm.n_maps, loss_at_new_q)
     return (Q, P, D) if track_pdiff else (Q, P)
 
 

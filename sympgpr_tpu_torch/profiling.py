@@ -97,15 +97,18 @@ def launch_counts(zero: bool = False) -> dict[str, int]:
     wrappers' counters: the covariance build (``cov_fwd``), the
     contraction (``cov_bwd``), the syrk, the triangular matmul (``trimm``)
     and the rollout, and of the rollout's launches those that ran cluster
-    teams (``rollout_cluster``).  ``zero=True`` sets them to 0 first."""
+    teams (``rollout_cluster``) and those that ran a Split instance, sub-map
+    cycling or the loss check at the new q (``rollout_split``).
+    ``zero=True`` sets them to 0 first."""
     from sympgpr_tpu_torch.ops import cuda_cov, cuda_step, cuda_syrk, \
         cuda_trimm
 
     if zero:
         cuda_cov.LAUNCHES_FWD = cuda_cov.LAUNCHES_BWD = 0
         cuda_syrk.LAUNCHES = cuda_trimm.LAUNCHES = cuda_step.LAUNCHES = 0
-        cuda_step.LAUNCHES_CLUSTER = 0
+        cuda_step.LAUNCHES_CLUSTER = cuda_step.LAUNCHES_SPLIT = 0
     return {"cov_fwd": cuda_cov.LAUNCHES_FWD,
             "cov_bwd": cuda_cov.LAUNCHES_BWD, "syrk": cuda_syrk.LAUNCHES,
             "trimm": cuda_trimm.LAUNCHES, "rollout": cuda_step.LAUNCHES,
-            "rollout_cluster": cuda_step.LAUNCHES_CLUSTER}
+            "rollout_cluster": cuda_step.LAUNCHES_CLUSTER,
+            "rollout_split": cuda_step.LAUNCHES_SPLIT}

@@ -408,6 +408,28 @@ def test_split_kernel_kinds_float64(cuda, name):
     assert max(_diff(Qk, Qr), _diff(Pk, Pr)) <= 1e-9
 
 
+@pytest.mark.parametrize("sizes,new_q,split", [
+    ((40, 24, 33, 17), True, True), ((40, 24, 33, 17), False, True),
+    ((40,), True, True), ((40,), False, False)],
+    ids=["four_maps_new_q", "four_maps_old_q", "one_map_new_q",
+         "one_map_old_q"])
+def test_split_launches_counted(cuda, sizes, new_q, split):
+    """A launch of a Split instance (sub-map cycling, or the loss check at
+    the new q with one map) raises ``rollout_split`` by one; a one-map
+    launch at the old q leaves it as it was."""
+    from sympgpr_tpu_torch import profiling
+
+    pm = _split_models(sizes, torch.float32, cuda)
+    q0, p0 = (torch.tensor(x, dtype=torch.float32, device=cuda)
+              for x in ics(3, b=30))
+    before = profiling.launch_counts()
+    cs.rollout_in_kernel(pm, q0, p0, 10, loss_check=True,
+                         loss_at_new_q=new_q)
+    after = profiling.launch_counts()
+    assert after["rollout"] == before["rollout"] + 1
+    assert after["rollout_split"] == before["rollout_split"] + split
+
+
 def _boundary_models(device):
     """Two sub-maps near the tokamak's loss boundary (P in [10, 14]: r =
     0.5 at cos q = 0.12 for P = 12) that turn q by ~1 and ~0.5 a step."""

@@ -102,5 +102,16 @@ def test_launch_counts_read_and_zero():
     assert profiling.launch_counts()["rollout"] >= 2
     counts = profiling.launch_counts(zero=True)
     assert counts == {"cov_fwd": 0, "cov_bwd": 0, "syrk": 0, "trimm": 0,
-                      "rollout": 0, "rollout_cluster": 0}
+                      "rollout": 0, "rollout_cluster": 0,
+                      "rollout_split": 0}
     assert cuda_cov.LAUNCHES_FWD == 0
+
+
+def test_launch_counts_zero_the_split_counter():
+    from sympgpr_tpu_torch.ops import cuda_step
+
+    cuda_step.LAUNCHES_SPLIT += 3
+    assert profiling.launch_counts()["rollout_split"] >= 3
+    profiling.launch_counts(zero=True)
+    assert cuda_step.LAUNCHES_SPLIT == 0
+    assert profiling.launch_counts()["rollout_split"] == 0
