@@ -15,13 +15,15 @@ per source, all at once) and drives the main paths on the card:
   60 Adam steps over the closed-form NLL gradient in float32, 30 orbits
   over nm=1000, and the same models rolled out in float64 by the plain
   fast path) through the covariance build and contraction (their
-  symmetric, fused modes), triangular matmul, syrk and rollout kernels;
+  symmetric, fused modes), triangular matmul, syrk, alpha product and
+  rollout kernels;
 * the standard map (``standard_map``, ``standard_map_explicit``: k=2,
   N=20, 30 orbits over nm=100) through the rollout kernel's mod_p / pdiff
   mode and Algorithm 2, and in float64 on the plain fast path; the three
   pendulum workloads at their reference configurations (nm=1000), kernel
   and float64; ``standard_map_large`` (N=4096 exact pairs, 60 Adam steps,
-  30 orbits over 200 rows) through kernels 2-5 and the mod_p / pdiff mode.
+  30 orbits over 200 rows) through kernels 2-5, the alpha product and the
+  mod_p / pdiff mode.
   ``modes_kernel_vs_plain`` holds the explicit update, Algorithm 2 and
   mod_p / pdiff against the plain version on these models, shows that its
   gates fail two wrong trajectories, and times each mode at 32768 x 1000
@@ -765,6 +767,9 @@ CONTRACT_NOISE_FACTOR = 3
 RTOL_SYRK_F32 = 1e-6
 # trimm: the same bound against max(|A| |tril(L)|) (no Cauchy-Schwarz)
 RTOL_TRIMM_F32 = 1e-4
+# the alpha product: float32 input summed in float64 and rounded once, as
+# its plain version, so the two differ by at most one float32 rounding
+RTOL_MATVEC_F32 = 1e-6
 RTOL_F64 = 1e-12  # float64 instances, same formulas in another order
 # the covariance kernels (~0.1 ms) and the passes they replaced are timed
 # over this many calls back to back
@@ -778,6 +783,8 @@ LARGE_SOURCES = {
              "sympgpr_tpu/ops/pallas_syrk.py:33"),     # def _syrk_tile
     "trimm": ("sympgpr_tpu_torch/csrc/tri_matmul.cu",
               "sympgpr_tpu/ops/pallas_trimm.py:40"),   # def _trimm_tile
+    # no TPU counterpart: the JAX package solves for alpha
+    "matvec": ("sympgpr_tpu_torch/csrc/tri_matmul.cu", None),
 }
 
 
@@ -798,8 +805,9 @@ def phase_large_main(dev):
                bench_r05_row=BENCH_R05_ROW, gates=GATES_LARGE,
                hist_first_last=[hist[0], hist[-1]])
     emit("large_main", **res)
-    for k, n in launches.items():
-        assert n > 0, f"the large-N path launched no {k} kernel"
+    for k, n in launches.items():  # its rollouts run no Split instance
+        assert n > 0 or k == "rollout_split", \
+            f"the large-N path launched no {k} kernel"
     assert np.all(np.isfinite(hist)), hist
     assert out["nll_last"] < out["nll_first"], res
     assert out["dtype"] == "float32" and sgp.X.device.type == "cuda"
@@ -1081,13 +1089,14 @@ def _trimm_check(side, A, B, sign) -> tuple[float, float]:
 
 
 def phase_large_kernels_vs_plain(dev, sgp):
-    """The four kernels of the fit step against their plain versions at
+    """The five kernels of the fit step against their plain versions at
     the main path's shapes (N=4096 float32: K and Kbar 8192 x 8192), and
     each float64 instance at a small size."""
     from sympgpr_tpu_torch.gp.likelihood import nll_value_and_grad_theta
     from sympgpr_tpu_torch.kernels import PER_SE
     from sympgpr_tpu_torch.linalg import triangular
-    from sympgpr_tpu_torch.ops import cuda_cov, cuda_syrk, cuda_trimm
+    from sympgpr_tpu_torch.ops import cuda_cov, cuda_matvec, cuda_syrk, \
+        cuda_trimm
 
     X, z, params, sig, s2n = sgp.X, sgp.z, sgp.params, sgp.sig, sgp.sig2n
     n = 2 * X.shape[0]
@@ -1215,6 +1224,27 @@ def phase_large_kernels_vs_plain(dev, sgp):
     res["syrk_tflops"] = m ** 3 / 3 / (kernels["syrk"]["ms"] * 1e9)
     del S64, W64
 
+    # the step's alpha = S z by the product kernel, against its plain
+    # version, and each float32 alpha against a float64 solve with L
+    am = cuda_matvec.matvec(S, z)
+    am_plain = cuda_matvec.matvec_reference(S, z)
+    res["matvec_rel_err"] = _rel_to_max(am, am_plain)
+    a64 = torch.cholesky_solve(z.double()[:, None], L.double())[:, 0]
+    res["alpha_rel_l2_vs_f64_solve"] = {
+        k: float((a.double() - a64).norm() / a64.norm())
+        for k, a in (("matvec", am), ("cholesky_solve", alpha))}
+    kernels["matvec"] = dict(
+        max_abs_err=float((am.double() - am_plain.double()).abs().max()),
+        ms=_time(lambda: cuda_matvec.matvec(S, z)),
+        plain_ms=_time(lambda: cuda_matvec.matvec_reference(S, z)),
+        # the call it replaces in the step, computing the same alpha
+        library_ms=_time(lambda: torch.cholesky_solve(z[:, None], L)),
+        # cuBLAS's float32 gemv sums in float32: another function
+        library_f32_accumulation_ms=_time(lambda: torch.mv(S, z)),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(S.numel() * S.element_size(), 2 * m * m))))
+    del am, am_plain, a64
+
     # the main path's contraction: the fused entry on (S, alpha); the
     # general entry on the float32 Kbar beside it
     Kbar = 0.5 * S - 0.5 * torch.outer(alpha, alpha)
@@ -1264,7 +1294,8 @@ def phase_large_kernels_vs_plain(dev, sgp):
                                                         X, z)),
         build=kernels["cov_fwd"]["ms"],
         cholesky=_time(lambda: torch.linalg.cholesky_ex(Ky)),
-        alpha_solve=_time(lambda: torch.cholesky_solve(z[:, None], L)),
+        alpha_solve=kernels["matvec"]["library_ms"],
+        alpha_matvec=kernels["matvec"]["ms"],
         tri_inv=_time(lambda: triangular.tri_inv_blocked(L)),
         syrk=kernels["syrk"]["ms"], contraction=kernels["cov_bwd"]["ms"])
     del Ky, L, W, S, Kbar
@@ -1307,6 +1338,9 @@ def phase_large_kernels_vs_plain(dev, sgp):
     W64 = L64[0, :250, :250].contiguous()
     f64["syrk"] = _rel_to_max(cuda_syrk.syrk_lower(W64),
                               cuda_syrk.syrk_lower_reference(W64))
+    f64["matvec"] = _rel_to_max(cuda_matvec.matvec(A64[0], A64[1, 0]),
+                                cuda_matvec.matvec_reference(A64[0],
+                                                             A64[1, 0]))
     res["f64_rel_err"] = f64
     res["kernels"] = kernels
     emit("large_kernels_vs_plain", **res)
@@ -1320,6 +1354,7 @@ def phase_large_kernels_vs_plain(dev, sgp):
                contraction["lower_no_x2_err"]) > contraction["bound"], \
         contraction
     assert res["syrk_rel_err"] <= RTOL_SYRK_F32, res
+    assert res["matvec_rel_err"] <= RTOL_MATVEC_F32, res
     assert trimm_rel <= RTOL_TRIMM_F32, res
     assert max(res["trimm_ragged_300_rel_err"].values()) <= RTOL_TRIMM_F32, \
         res["trimm_ragged_300_rel_err"]

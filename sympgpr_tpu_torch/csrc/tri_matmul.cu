@@ -1,14 +1,18 @@
 // Matrix products with a lower-triangular operand on Hopper (sm_90a): the
 // batched triangular matmuls of the blocked triangular inverse and the syrk
-// S = W^T W that forms Ky^{-1} from W = L^{-1}.
+// S = W^T W that forms Ky^{-1} from W = L^{-1}; and the product y = S x
+// that takes the fit step's alpha = Ky^{-1} z from that S.
 //
 // Replaces two Pallas kernels:
 //  * sympgpr_tpu/ops/pallas_trimm.py:40 _trimm_tile (batched A @ L and
 //    L @ A, L lower) -> trimm_kernel<kRight> / <kLeft>;
 //  * sympgpr_tpu/ops/pallas_syrk.py:33 _syrk_tile (W^T W, W lower)
 //    -> syrk_kernel.
+// matvec_kernel replaces none: the JAX package solves for alpha with two
+// triangular solves, which on the card are cuBLAS's trsv (notes below).
 // The plain PyTorch versions are torch.tril(L) followed by torch.matmul
-// (ops/cuda_trimm.py) and W.T @ W (ops/cuda_syrk.py).
+// (ops/cuda_trimm.py), W.T @ W (ops/cuda_syrk.py) and S @ x in float64
+// (ops/cuda_matvec.py).
 //
 // What bounds them: arithmetic.  A 128 x 128 output tile reads 2 x 128
 // values per k step and does 128 x 128 multiply-adds from them, 64 per
@@ -142,6 +146,30 @@
 //    so row tile 0 has the longest k-range and the last wave the shortest.
 //    Each block writes its outputs on and below the diagonal and their
 //    mirrors above it, so S is exactly symmetric.
+
+// matvec_kernel (y = S x, S square and row-major, full).
+//  * Why: the fit step forms S = Ky^{-1} in full for its gradient, so
+//    alpha = S z is one product with no dependency chain.  The two
+//    triangular solves it replaces (torch.cholesky_solve: cuBLAS's trsv,
+//    a chain of blocks down the diagonal) took ~1.09 ms a step at
+//    n = 8192 on an H100, for 2 x 134 MB of the factor read.
+//  * What bounds it: bytes.  S is read once (268 MB in float32 at
+//    n = 8192: 0.080 ms at 3.35 TB/s); x and y are n values each.
+//  * A warp takes a row; lane l reads every 32nd 16-byte vector of it (4
+//    float32 or 2 float64), so a warp reads 512 contiguous bytes at once,
+//    and x's matching vector (from L1: x is 32 KB at n = 8192).  The loop
+//    is unrolled 8 deep, so each lane has 8 vectors of its row in flight.
+//    On an H100 at n = 8192 in float32 this ran at 0.090 ms (89 % of the
+//    bound; float64 0.178 ms, 90 %), against 0.092-0.134 ms for 2, 4 or 8
+//    rows a warp (x's vector shared by the rows, fewer vectors in flight)
+//    or 4 deep, and 0.132 ms for blocks of 512 threads.
+//  * float64 products and sums (a product of two float32 values is exact
+//    in float64), rounded to T once, as the syrk: S holds values up to
+//    ~1 / sig2n and alpha cancels most of them.  Each lane sums its
+//    columns in order, then the warp adds the lanes by a fixed butterfly,
+//    so a row is summed in one order on every run: no atomics.
+//  * Rows not 16-byte aligned (n off a multiple of the vector, or a
+//    misaligned pointer) take one element a lane (instance VEC = false).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -631,6 +659,63 @@ int syrk(const T* W, T* S, int n, void* stream) {
                  : syrk_launch<T, false>(W, S, n, st));
 }
 
+// --- matvec_kernel --------------------------------------------------------
+
+constexpr int kMvThreads = 256;  // 8 warps, a row each
+constexpr int kMvUnroll = 8;     // vectors of the row in flight a lane
+
+template <typename T, int V>
+__device__ __forceinline__ void ldv(T (&r)[V], const T* p) {
+  if constexpr (V == 1)
+    r[0] = *p;
+  else
+    ld16(r, p);
+}
+
+// y = S x, a row a warp; VEC: n a multiple of the 16-byte vector and S, x
+// 16-byte aligned.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kMvThreads)
+    matvec_kernel(const T* __restrict__ S, const T* __restrict__ x,
+                  T* __restrict__ y, int n) {
+  constexpr int V = VEC ? 16 / int(sizeof(T)) : 1;
+  const int lane = int(threadIdx.x) % 32;
+  const int r = int(blockIdx.x) * (kMvThreads / 32) + int(threadIdx.x) / 32;
+  if (r >= n) return;  // the whole warp
+  const T* row = S + size_t(r) * n;
+  double acc = 0.0;
+  const int nv = n / V;
+#pragma unroll (kMvUnroll)
+  for (int c = lane; c < nv; c += 32) {
+    T sv[V], xv[V];
+    ldv<T, V>(sv, row + size_t(c) * V);
+    ldv<T, V>(xv, x + size_t(c) * V);
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc = fma(double(sv[j]), double(xv[j]), acc);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) y[r] = T(acc);
+}
+
+template <typename T>
+int matvec(const T* S, const T* x, T* y, int n, void* stream) {
+  constexpr int V = 16 / int(sizeof(T));
+  const auto aligned = [](const void* q) {
+    return reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  };
+  const bool vec = n % V == 0 && aligned(S) && aligned(x);
+  constexpr int rows = kMvThreads / 32;
+  const unsigned grid = unsigned((n + rows - 1) / rows);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec)
+    matvec_kernel<T, true><<<grid, kMvThreads, 0, st>>>(S, x, y, n);
+  else
+    matvec_kernel<T, false><<<grid, kMvThreads, 0, st>>>(S, x, y, n);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C interface for ctypes.  Every pointer is a device pointer to
@@ -638,7 +723,8 @@ int syrk(const T* W, T* S, int n, void* stream) {
 // leading dimension (row stride) and a batch stride in elements, C not
 // overlapping A or B; right != 0 computes C = sign * (A @ tril(B)),
 // right == 0 computes C = sign * (tril(A) @ B), sign +1 or -1.  syrk: W and
-// S are (n, n); S = tril(W)^T tril(W), full.  The return value is the
+// S are (n, n); S = tril(W)^T tril(W), full.  matvec: S is (n, n), x and
+// y are (n,), y not overlapping S or x; y = S x.  The return value is the
 // cudaError_t of the launch (0 on success).
 extern "C" int trimm_f32(const float* A, long long lda, long long sa,
                          const float* B, long long ldb, long long sb,
@@ -663,4 +749,14 @@ extern "C" int syrk_lower_f32(const float* W, float* S, int n, void* stream) {
 extern "C" int syrk_lower_f64(const double* W, double* S, int n,
                               void* stream) {
   return syrk<double>(W, S, n, stream);
+}
+
+extern "C" int matvec_f32(const float* S, const float* x, float* y, int n,
+                          void* stream) {
+  return matvec<float>(S, x, y, n, stream);
+}
+
+extern "C" int matvec_f64(const double* S, const double* x, double* y, int n,
+                          void* stream) {
+  return matvec<double>(S, x, y, n, stream);
 }

@@ -13,6 +13,12 @@ Above ``cuda_cov.nll_threshold()`` training points in float32 the
 covariance comes from the hand-written build kernel
 (``ops/cuda_cov.py``), with the contraction kernel as its backward; the
 closed-form gradient takes the kernels' fused entries there.
+
+alpha = Ky^{-1} z comes from two triangular solves with the Cholesky
+factor (``torch.cholesky_solve``), except in ``nll_value_and_grad`` on a
+CUDA device: that step forms S = Ky^{-1} for its gradient anyway, and
+takes alpha = S z from it through the hand-written product kernel
+(``ops/cuda_matvec.py``).
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ from sympgpr_tpu_torch.gp.covariance import (
 )
 from sympgpr_tpu_torch.kernels.variants import Kernel
 from sympgpr_tpu_torch.linalg.triangular import spd_inverse_from_chol
-from sympgpr_tpu_torch.ops import cuda_cov
+from sympgpr_tpu_torch.ops import cuda_cov, cuda_matvec
 from sympgpr_tpu_torch.profiling import span
 
 Tensor = torch.Tensor
@@ -176,7 +182,11 @@ def nll_value_and_grad(kernel: Kernel, params: Tensor, sig: Tensor,
         d nll / d theta = <0.5 (Ky^{-1} - alpha alpha^T), dK / d theta>
 
     with Ky^{-1} from the blocked triangular inverse and the syrk
-    (``linalg/triangular.py``) on every device.  Where the build takes the
+    (``linalg/triangular.py``) on every device.  alpha = Ky^{-1} z comes
+    from that S on a CUDA device, S z through ``ops/cuda_matvec.py``'s
+    kernel (one read of S, where the two triangular solves run a chain
+    down the factor), and from ``torch.cholesky_solve`` with the factor on
+    the CPU.  Where the build takes the
     kernel, its fused entries of ``ops/cuda_cov.py`` write Ky with |sig2n|
     on its diagonal, and form Kbar from S = Ky^{-1} and alpha on load in
     the contraction, so neither the identity, K apart from Ky, nor Kbar is
@@ -203,10 +213,13 @@ def nll_value_and_grad(kernel: Kernel, params: Tensor, sig: Tensor,
     with span("sympgpr::nll.factor"):
         L, info = torch.linalg.cholesky_ex(Ky)
         poison = torch.where(info == 0, 0.0, math.nan).to(Ky.dtype)
-    with span("sympgpr::nll.alpha"):
-        alpha = torch.cholesky_solve(z[:, None], L)[:, 0]
-        val = 0.5 * z @ alpha + torch.sum(torch.log(torch.diagonal(L)))
     S = spd_inverse_from_chol(L)
+    with span("sympgpr::nll.alpha"):
+        if S.is_cuda:
+            alpha = cuda_matvec.matvec(S, z)
+        else:
+            alpha = torch.cholesky_solve(z[:, None], L)[:, 0]
+        val = 0.5 * z @ alpha + torch.sum(torch.log(torch.diagonal(L)))
     with span("sympgpr::nll.contraction"):
         if fused:
             dparams, dsig = cuda_cov.cov_param_grads_sym(kernel.name, X,

@@ -12,9 +12,9 @@
     (an attempt's history fetch; the last attempt's also the final
     build, factor, alpha solve and training error); in a step
     ``sympgpr::nll.build``, ``sympgpr::nll.factor``,
-    ``sympgpr::nll.alpha``, ``sympgpr::linalg.tri_inv``,
-    ``sympgpr::linalg.syrk``, ``sympgpr::nll.contraction`` and
-    ``sympgpr::fit.update``;
+    ``sympgpr::linalg.tri_inv``, ``sympgpr::linalg.syrk``,
+    ``sympgpr::nll.alpha`` (alpha and the value, after the syrk),
+    ``sympgpr::nll.contraction`` and ``sympgpr::fit.update``;
   - the rollout (``ops/cuda_step.py``): ``sympgpr::rollout`` (one call of
     ``rollout_in_kernel``, the CPU path included), in a launch
     ``sympgpr::rollout.validate``, ``sympgpr::rollout.alloc`` and
@@ -95,20 +95,23 @@ def best_ms(fn: Callable[[], object], reps: int = 3, calls: int = 1,
 def launch_counts(zero: bool = False) -> dict[str, int]:
     """Launches of each hand-written kernel in this process, by the
     wrappers' counters: the covariance build (``cov_fwd``), the
-    contraction (``cov_bwd``), the syrk, the triangular matmul (``trimm``)
-    and the rollout, and of the rollout's launches those that ran cluster
-    teams (``rollout_cluster``) and those that ran a Split instance, sub-map
-    cycling or the loss check at the new q (``rollout_split``).
+    contraction (``cov_bwd``), the syrk, the triangular matmul (``trimm``),
+    the fit step's alpha product (``matvec``) and the rollout, and of the
+    rollout's launches those that ran cluster teams (``rollout_cluster``)
+    and those that ran a Split instance, sub-map cycling or the loss check
+    at the new q (``rollout_split``).
     ``zero=True`` sets them to 0 first."""
-    from sympgpr_tpu_torch.ops import cuda_cov, cuda_step, cuda_syrk, \
-        cuda_trimm
+    from sympgpr_tpu_torch.ops import cuda_cov, cuda_matvec, cuda_step, \
+        cuda_syrk, cuda_trimm
 
     if zero:
         cuda_cov.LAUNCHES_FWD = cuda_cov.LAUNCHES_BWD = 0
         cuda_syrk.LAUNCHES = cuda_trimm.LAUNCHES = cuda_step.LAUNCHES = 0
+        cuda_matvec.LAUNCHES = 0
         cuda_step.LAUNCHES_CLUSTER = cuda_step.LAUNCHES_SPLIT = 0
     return {"cov_fwd": cuda_cov.LAUNCHES_FWD,
             "cov_bwd": cuda_cov.LAUNCHES_BWD, "syrk": cuda_syrk.LAUNCHES,
-            "trimm": cuda_trimm.LAUNCHES, "rollout": cuda_step.LAUNCHES,
+            "trimm": cuda_trimm.LAUNCHES, "matvec": cuda_matvec.LAUNCHES,
+            "rollout": cuda_step.LAUNCHES,
             "rollout_cluster": cuda_step.LAUNCHES_CLUSTER,
             "rollout_split": cuda_step.LAUNCHES_SPLIT}

@@ -60,14 +60,14 @@ ADAM_LR = 3e-2
 ROLLOUT_B, ROLLOUT_NM, ROLLOUT_ITERS = 4096, 256, 5
 # the kernels each stage of ``measure`` launches on the card (its
 # ``launches``): the build, the contractions, the syrk, the triangular
-# matmul, the rollout
+# matmul, the closed-form step's alpha product, the rollout
 STAGE_KERNELS = {
     "build": {"cov_fwd"},
     "cholesky": set(),
     "nll_eval": {"cov_fwd"},
-    "train_step": {"cov_fwd", "cov_bwd", "syrk", "trimm"},
+    "train_step": {"cov_fwd", "cov_bwd", "syrk", "trimm", "matvec"},
     "train_step_autodiff": {"cov_fwd", "cov_bwd"},
-    "adam": {"cov_fwd", "cov_bwd", "syrk", "trimm"},
+    "adam": {"cov_fwd", "cov_bwd", "syrk", "trimm", "matvec"},
     "triinv": {"trimm"},
     "syrk": {"syrk"},
     "rollout": {"rollout"},

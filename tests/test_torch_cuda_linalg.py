@@ -2,8 +2,9 @@
 PyTorch versions, on the card: covariance build and contraction
 (``ops/cuda_cov.py``, with the fit's fused entries ``build_Ky`` and
 ``cov_param_grads_sym``), triangular matmul (``ops/cuda_trimm.py``), syrk
-(``ops/cuda_syrk.py``), the jitter escalation of the fit through them, and
-a fit step that never makes the host wait for the card.
+(``ops/cuda_syrk.py``), the alpha product (``ops/cuda_matvec.py``) and the
+fit step's alpha and value from it, the jitter escalation of the fit
+through them, and a fit step that never makes the host wait for the card.
 
 Needs a CUDA device and nvcc; skips otherwise.  Needs no JAX:
 
@@ -16,6 +17,9 @@ contraction and the triangular products (sums of thousands of float32
 terms in another order; the plain float32 version carries that much
 error itself).  The syrk accumulates float32 in float64, so it is held
 against the plain version in float64 at 1e-6 (one float32 rounding).  The
+alpha product also sums in float64: its float32 result is held within one
+float32 ulp of the float64 product, and both dtypes within 1e-13 of each
+row's sum of |S x| terms (two float64 orders of summation).  The
 fused contraction on the inverse of a real GP covariance cancels almost
 all of its terms, so there it is held within 3x the error of the plain
 version on the float32 Kbar, as ``chip_smoke.py`` does.
@@ -29,13 +33,15 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 from torch_parity import npy  # noqa: E402
 
+from sympgpr_tpu_torch.gp.covariance import build_K_fast  # noqa: E402
 from sympgpr_tpu_torch.gp.likelihood import (  # noqa: E402
-    nll_value_and_grad_theta)
+    nll_value_and_grad, nll_value_and_grad_theta)
 from sympgpr_tpu_torch.kernels import variants as kv  # noqa: E402
 from sympgpr_tpu_torch.linalg import triangular  # noqa: E402
 from sympgpr_tpu_torch.linalg.triangular import (  # noqa: E402
     spd_inverse_from_chol, tri_inv_blocked)
-from sympgpr_tpu_torch.ops import cuda_cov, cuda_syrk, cuda_trimm  # noqa: E402
+from sympgpr_tpu_torch.ops import (  # noqa: E402
+    cuda_cov, cuda_matvec, cuda_syrk, cuda_trimm)
 from sympgpr_tpu_torch.workloads.tokamak_large import (  # noqa: E402
     fit_sympgp_large)
 
@@ -310,6 +316,102 @@ def test_spd_inverse_through_kernels(cuda, monkeypatch):
     assert cuda_trimm.LAUNCHES > before[0] and cuda_syrk.LAUNCHES > before[1]
     assert torch.all(torch.triu(W, 1) == 0)
     np.testing.assert_allclose(Kyinv @ Ky, np.eye(n), atol=1e-9)
+
+
+def _matvec_case(n, dt, device, offset=0):
+    """A random (n, n) S (starting ``offset`` elements into its buffer,
+    so off the 16-byte grid for offset 1) and x, on the card."""
+    rng = np.random.default_rng(n + offset)
+    buf = torch.tensor(rng.standard_normal(n * n + offset), dtype=dt,
+                       device=device)
+    S = buf[offset:].view(n, n)
+    x = torch.tensor(rng.standard_normal(n), dtype=dt, device=device)
+    return S, x
+
+
+# n below, at and off the 16-byte vector (4 float32, 2 float64), across
+# the 32-row block and the 32-lane stride, the fit's 8192; offset 1: S off
+# the 16-byte grid (element loads)
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [1, 33, 300, 1000, 8192])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_matvec_matches_plain(cuda, dtype, n, offset):
+    dt = DTYPES[dtype]
+    S, x = _matvec_case(n, dt, cuda, offset)
+    before = cuda_matvec.LAUNCHES
+    y = cuda_matvec.matvec(S, x)
+    torch.cuda.synchronize()
+    assert cuda_matvec.LAUNCHES == before + 1
+    assert y.dtype == dt and y.shape == (n,)
+    ref = S.double() @ x.double()
+    err = (y.double() - ref).abs()
+    terms = S.double().abs() @ x.double().abs()
+    if dt == torch.float32:  # the float64 sum rounded once
+        assert torch.all(err <= ref.abs() * 2.0 ** -23 + 1e-13 * terms)
+    else:
+        assert torch.all(err <= 1e-13 * terms)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_matvec_same_bits_twice(cuda, dtype):
+    """Each row is summed in one fixed order: no atomics."""
+    S, x = _matvec_case(8192, DTYPES[dtype], cuda)
+    before = cuda_matvec.LAUNCHES
+    a, b = cuda_matvec.matvec(S, x), cuda_matvec.matvec(S, x)
+    torch.cuda.synchronize()
+    assert cuda_matvec.LAUNCHES == before + 2
+    assert torch.equal(a, b)
+
+
+def test_matvec_refuses_non_contiguous(cuda):
+    S, x = _matvec_case(64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_matvec.matvec(S.T, x)
+    with pytest.raises(ValueError, match="on cpu"):
+        cuda_matvec.matvec(S, x.cpu())
+
+
+def _nll_value_and_grad_by_solve(kernel, params, sig, sig2n, X, z):
+    """The fit step's value and gradient with alpha from the two
+    triangular solves (``torch.cholesky_solve``), as before the alpha
+    product: the autodiff build, Ky^{-1} by ``torch.cholesky_inverse``."""
+    params = params.detach().requires_grad_(True)
+    sig = sig.detach().requires_grad_(True)
+    with torch.enable_grad():
+        K = build_K_fast(kernel, X, X, params, sig)
+    Ky = K.detach() + torch.abs(sig2n) * torch.eye(K.shape[0],
+                                                   dtype=K.dtype,
+                                                   device=K.device)
+    L = torch.linalg.cholesky(Ky)
+    alpha = torch.cholesky_solve(z[:, None], L)[:, 0]
+    val = 0.5 * z @ alpha + torch.sum(torch.log(torch.diagonal(L)))
+    Kbar = 0.5 * torch.cholesky_inverse(L) - 0.5 * torch.outer(alpha, alpha)
+    dparams, dsig = torch.autograd.grad(K, (params, sig), Kbar)
+    return val, dparams, dsig
+
+
+@pytest.mark.parametrize("name", ["per_se", "se_se"])
+def test_nll_alpha_from_the_product(cuda, name):
+    """float64 on the card: the step takes alpha = S z through the kernel
+    (one launch a step) and its value and gradient lie within 1e-10 of
+    those with alpha from the two triangular solves (relative to the
+    value, and to the gradient's largest component)."""
+    kernel = kv.get_kernel(name)
+    X = _points(64, 5, torch.float64, cuda)
+    z = torch.tensor(np.random.default_rng(6).normal(size=128) * 0.1,
+                     dtype=torch.float64, device=cuda)
+    params = torch.tensor(PARAMS[name], dtype=torch.float64, device=cuda)
+    sig = torch.tensor(2.5, dtype=torch.float64, device=cuda)
+    s2n = torch.tensor(1e-2, dtype=torch.float64, device=cuda)
+    before = cuda_matvec.LAUNCHES
+    got = nll_value_and_grad(kernel, params, sig, s2n, X, z)
+    torch.cuda.synchronize()
+    assert cuda_matvec.LAUNCHES == before + 1
+    ref = _nll_value_and_grad_by_solve(kernel, params, sig, s2n, X, z)
+    assert abs(float(got[0] - ref[0])) <= 1e-10 * abs(float(ref[0]))
+    g, g_ref = (torch.cat([t[1], t[2][None]]) for t in (got, ref))
+    assert float((g - g_ref).abs().max()) <= 1e-10 * float(
+        g_ref.abs().max()), (g, g_ref)
 
 
 def test_wrappers_refuse_mixed_devices(cuda):

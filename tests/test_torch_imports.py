@@ -62,7 +62,8 @@ def test_large_n_modules_import_without_jax():
     code = (
         "import importlib\n"
         "for n in ('ops.cuda_cov', 'ops.cuda_syrk', 'ops.cuda_trimm',\n"
-        "          'linalg.triangular', 'gp.likelihood', 'gp.train',\n"
+        "          'ops.cuda_matvec', 'linalg.triangular', 'gp.likelihood',\n"
+        "          'gp.train',\n"
         "          'workloads.tokamak_large'):\n"
         "    importlib.import_module('sympgpr_tpu_torch.' + n)\n"
         "assert not [m for m in sys.modules if m.split('.')[0] in\n"

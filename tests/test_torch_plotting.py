@@ -102,9 +102,18 @@ def test_launch_counts_read_and_zero():
     assert profiling.launch_counts()["rollout"] >= 2
     counts = profiling.launch_counts(zero=True)
     assert counts == {"cov_fwd": 0, "cov_bwd": 0, "syrk": 0, "trimm": 0,
-                      "rollout": 0, "rollout_cluster": 0,
+                      "matvec": 0, "rollout": 0, "rollout_cluster": 0,
                       "rollout_split": 0}
     assert cuda_cov.LAUNCHES_FWD == 0
+
+
+def test_launch_counts_zero_the_matvec_counter():
+    from sympgpr_tpu_torch.ops import cuda_matvec
+
+    cuda_matvec.LAUNCHES += 3
+    assert profiling.launch_counts()["matvec"] >= 3
+    profiling.launch_counts(zero=True)
+    assert cuda_matvec.LAUNCHES == 0
 
 
 def test_launch_counts_zero_the_split_counter():

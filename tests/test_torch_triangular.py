@@ -1,5 +1,7 @@
 """PyTorch port vs JAX: the triangular products and the blocked inverse
-(``ops/cuda_trimm.py``, ``ops/cuda_syrk.py``, ``linalg/triangular.py``).
+(``ops/cuda_trimm.py``, ``ops/cuda_syrk.py``, ``linalg/triangular.py``);
+and the alpha product ``ops/cuda_matvec.py``, which JAX lacks, against
+``torch.cholesky_solve``.
 
 JAX runs its Pallas kernels in interpret mode on the CPU with the calls of
 ``tests/test_fast_grad.py`` (tile 128, ``precision="highest"``); the port
@@ -24,7 +26,8 @@ from sympgpr_tpu.ops.pallas_trimm import (  # noqa: E402
 from sympgpr_tpu_torch.linalg import triangular  # noqa: E402
 from sympgpr_tpu_torch.linalg.triangular import (  # noqa: E402
     spd_inverse_from_chol, tri_inv_blocked)
-from sympgpr_tpu_torch.ops import cuda_syrk, cuda_trimm  # noqa: E402
+from sympgpr_tpu_torch.ops import (  # noqa: E402
+    cuda_matvec, cuda_syrk, cuda_trimm)
 
 
 def _tril_case(n, seed):
@@ -251,3 +254,48 @@ def test_wrappers_refuse_other_devices():
         cuda_trimm.matmul_tril_right(A, A)
     with pytest.raises(ValueError, match="device"):
         cuda_syrk.syrk_lower(A[0])
+
+
+@pytest.mark.parametrize("n", [1, 33, 300])
+def test_matvec_plain_is_the_cholesky_solve(n):
+    """alpha = S z from S = Ky^{-1} (the blocked inverse and the syrk)
+    equals the two triangular solves with the factor, float64, on a
+    well-conditioned SPD Ky."""
+    rng = np.random.default_rng(n)
+    A = rng.standard_normal((n, n))
+    Ky = tt(A @ A.T + n * np.eye(n))
+    z = tt(rng.standard_normal(n))
+    L = torch.linalg.cholesky(Ky)
+    before = cuda_matvec.LAUNCHES
+    alpha = cuda_matvec.matvec(spd_inverse_from_chol(L), z)
+    assert cuda_matvec.LAUNCHES == before  # CPU tensors: no kernel
+    assert alpha.dtype == torch.float64 and alpha.shape == (n,)
+    np.testing.assert_allclose(
+        npy(alpha), npy(torch.cholesky_solve(z[:, None], L)[:, 0]),
+        atol=1e-10)
+
+
+def test_matvec_plain_sums_in_float64():
+    """float32 in, float32 out, summed in float64: the float64 sum
+    rounded once."""
+    rng = np.random.default_rng(2)
+    S = torch.tensor(rng.standard_normal((64, 64)), dtype=torch.float32)
+    x = torch.tensor(rng.standard_normal(64), dtype=torch.float32)
+    y = cuda_matvec.matvec(S, x)
+    assert y.dtype == torch.float32
+    assert torch.equal(y, (S.double() @ x.double()).float())
+
+
+def test_matvec_refuses_bad_operands():
+    S = torch.zeros((8, 8), dtype=torch.float64)
+    x = torch.zeros(8, dtype=torch.float64)
+    with pytest.raises(ValueError, match="square"):
+        cuda_matvec.matvec(S[:, :4], x)
+    with pytest.raises(ValueError, match="square"):
+        cuda_matvec.matvec(S[:0, :0], x[:0])
+    with pytest.raises(ValueError, match="shape"):
+        cuda_matvec.matvec(S, x[:4])
+    with pytest.raises(ValueError, match="float32"):
+        cuda_matvec.matvec(S, x.float())
+    with pytest.raises(ValueError, match="device"):
+        cuda_matvec.matvec(S.to("meta"), x.to("meta"))

@@ -17,7 +17,10 @@ Timed with CUDA events, best and median of ``--reps`` after one warm-up:
 the syrk in float32 and on a float64 copy of W, beside cuBLAS's float32
 ``W.T @ W`` (float32 accumulation, another function) and DGEMM on the
 float64 copy (the same function: float64 products and sums); ``tri_inv``,
-the Cholesky, the alpha solve, the covariance build (general mode on
+the Cholesky, the alpha solve (``cholesky_solve``) and, where the
+checkout has it, alpha as S z by the product kernel (``alpha_matvec``),
+each alpha's error against a float64 solve with the same factor, the
+covariance build (general mode on
 X, X; and ``build_Ky``, the symmetric mode writing Ky, where the checkout
 has it), the contraction (general entry on Kbar; and the fused
 ``cov_param_grads_sym`` on S and alpha where the checkout has it), the
@@ -48,13 +51,15 @@ The syrk's error against float64 is printed beside its TFLOP/s on n^3 / 3
 flop (the lower triangle of W^T W over a triangular W), the ptxas report
 (registers, spills) of the kernels of ``tri_matmul.cu`` and
 ``cov_blocks.cu``, and each covariance kernel's SASS instruction counts
-(``cuobjdump -sass``: all, and those of the floating-point pipes).  Prints one JSON line per checkout and process,
-then the card's ``nvidia-smi`` name and power limit.
+(``cuobjdump -sass``: all, and those of the floating-point pipes).  Prints one JSON line per checkout and process
+(``package``: the directory of the ``sympgpr_tpu_torch`` it timed), then
+the card's ``nvidia-smi`` name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import math
 import re
@@ -64,15 +69,23 @@ import sys
 import time
 from pathlib import Path
 
-# the measurement helpers (SASS counts, the profiler's device time) of this
-# tool's own checkout, whichever checkout it times
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-import chip_smoke  # noqa: E402
-
 HYP = (0.541, 1.391, 26.55)
 N_TRAIN = 4096
 SIG2N = 1e-2
 ADAM_STEPS = 60
+
+
+def _chip_smoke():
+    """The measurement helpers (SASS counts, the profiler's device time)
+    of this tool's own checkout's ``chip_smoke.py``, whichever checkout it
+    times.  Loaded by path once the timed checkout is first on
+    ``sys.path``, so that the ``sympgpr_tpu_torch`` it imports, and with
+    it every part timed here, is the timed checkout's package."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def _time(fn, reps: int, calls: int = 1) -> tuple[float, float]:
@@ -111,7 +124,7 @@ def _ptxas(log: Path) -> dict:
     return out
 
 
-def _sass(library: Path) -> dict:
+def _sass(library: Path, chip_smoke) -> dict:
     """``chip_smoke.sass_counts`` of each covariance kernel instance in a
     built library, keyed by its mangled template arguments, as "all/fp"."""
     out = {}
@@ -163,11 +176,14 @@ def _step_parts(X, z, params, sig, s2n) -> dict:
     fused entries where the checkout has them)."""
     import torch
 
+    from sympgpr_tpu_torch import ops
     from sympgpr_tpu_torch.linalg import triangular
     from sympgpr_tpu_torch.ops import cuda_cov, cuda_syrk
 
     st, n = {}, 2 * X.shape[0]
     fused = hasattr(cuda_cov, "build_Ky")
+    # alpha = S z after the syrk where the checkout has the product kernel
+    matvec = _matvec_module(ops)
     parts = {}
     if fused:
         parts["build_Ky"] = lambda: st.update(Ky=cuda_cov.build_Ky(
@@ -182,13 +198,19 @@ def _step_parts(X, z, params, sig, s2n) -> dict:
     if not fused:
         parts["where_L"] = lambda: st.update(L=torch.where(
             st["info"] == 0, st["L"], math.nan))
-    parts["alpha_solve"] = lambda: st.update(alpha=torch.cholesky_solve(
-        z[:, None], st["L"])[:, 0])
-    parts["nll_terms"] = lambda: 0.5 * z @ st["alpha"] + torch.sum(
-        torch.log(torch.diagonal(st["L"])))
+    if matvec is None:
+        parts["alpha_solve"] = lambda: st.update(
+            alpha=torch.cholesky_solve(z[:, None], st["L"])[:, 0])
+        parts["nll_terms"] = lambda: 0.5 * z @ st["alpha"] + torch.sum(
+            torch.log(torch.diagonal(st["L"])))
     parts["tri_inv"] = lambda: st.update(W=triangular.tri_inv_blocked(
         st["L"]).contiguous())
     parts["syrk"] = lambda: st.update(S=cuda_syrk.syrk_lower(st["W"]))
+    if matvec is not None:
+        parts["alpha_matvec"] = lambda: st.update(alpha=matvec.matvec(
+            st["S"], z))
+        parts["nll_terms"] = lambda: 0.5 * z @ st["alpha"] + torch.sum(
+            torch.log(torch.diagonal(st["L"])))
     if fused:
         parts["contraction_sym"] = lambda: cuda_cov.cov_param_grads_sym(
             "per_se", X, params, sig, st["S"], st["alpha"])
@@ -198,6 +220,16 @@ def _step_parts(X, z, params, sig, s2n) -> dict:
         parts["contraction"] = lambda: cuda_cov.cov_param_grads(
             "per_se", X, X, params, sig, st["Kbar"])
     return parts
+
+
+def _matvec_module(ops):
+    """The checkout's ``ops.cuda_matvec``, or None where it has none."""
+    import importlib
+
+    try:
+        return importlib.import_module(ops.__name__ + ".cuda_matvec")
+    except ModuleNotFoundError:
+        return None
 
 
 def _host_s(fn) -> float:
@@ -244,12 +276,15 @@ def run_one(tree: str, reps: int) -> None:
     sys.path.insert(0, str(Path(tree).resolve()))
     import torch
 
+    import sympgpr_tpu_torch
+    from sympgpr_tpu_torch import ops
     from sympgpr_tpu_torch.gp import train
     from sympgpr_tpu_torch.gp.likelihood import nll_value_and_grad_theta
     from sympgpr_tpu_torch.kernels import PER_SE
     from sympgpr_tpu_torch.linalg import triangular
     from sympgpr_tpu_torch.ops import _build, cuda_cov, cuda_syrk
 
+    chip_smoke = _chip_smoke()
     dev = torch.device("cuda", 0)
     X, z, params, sig, s2n = _inputs(dev)
     torch.cuda.synchronize()
@@ -270,12 +305,24 @@ def run_one(tree: str, reps: int) -> None:
     scale = float(S64.abs().max())
     Kbar = 0.5 * S - 0.5 * torch.outer(alpha, alpha)
     theta = torch.log10(torch.cat([params, sig[None]]))
+    matvec = _matvec_module(ops)
+    # each float32 alpha against a float64 solve with the same factor
+    a64 = torch.cholesky_solve(z.double()[:, None], L.double())[:, 0]
+    alpha_err = {"alpha_solve_rel_err": alpha}
+    if matvec is not None:
+        alpha_err["alpha_matvec_rel_err"] = matvec.matvec(S, z)
+    alpha_err = {k: float((a.double() - a64).norm() / a64.norm())
+                 for k, a in alpha_err.items()}
+    del a64
 
-    row = dict(tree=tree, n=n, first_s=first, second_s=second,
+    row = dict(tree=tree, package=str(Path(sympgpr_tpu_torch.__file__)
+                                      .parent.resolve()),
+               n=n, first_s=first, second_s=second,
                syrk_rel_err=float((S.double() - S64).abs().max()) / scale,
                syrk_symmetric=bool(torch.equal(S, S.T)),
                syrk_f64_rel_err=float(
-                   (cuda_syrk.syrk_lower(W64) - S64).abs().max()) / scale)
+                   (cuda_syrk.syrk_lower(W64) - S64).abs().max()) / scale,
+               **alpha_err)
     del S64
     timed = {
         "syrk": lambda: cuda_syrk.syrk_lower(W),
@@ -298,6 +345,8 @@ def run_one(tree: str, reps: int) -> None:
         "fit_step": lambda: nll_value_and_grad_theta(PER_SE, theta, s2n, X,
                                                      z),
     }
+    if matvec is not None:
+        timed["alpha_matvec"] = lambda: matvec.matvec(S, z)
     if hasattr(cuda_cov, "build_Ky"):
         timed["build_Ky"] = lambda: cuda_cov.build_Ky("per_se", X, params,
                                                       sig, s2n)
@@ -338,7 +387,8 @@ def run_one(tree: str, reps: int) -> None:
     row["syrk_f64_tflops"] = flop / (row["syrk_f64_ms"] * 1e9)
     row["ptxas"] = {name: _ptxas(_build.library_path(name).with_suffix(
         ".log")) for name in ("tri_matmul", "cov_blocks")}
-    row["sass_instructions"] = _sass(_build.library_path("cov_blocks"))
+    row["sass_instructions"] = _sass(_build.library_path("cov_blocks"),
+                                     chip_smoke)
     print(json.dumps(row), flush=True)
 
 
