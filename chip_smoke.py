@@ -356,15 +356,14 @@ def phase_build() -> None:
 
 
 def phase_main_kernel(dev):
-    from sympgpr_tpu_torch.ops import cuda_step
     from sympgpr_tpu_torch.systems import tokamak as tk
     from sympgpr_tpu_torch.workloads import tokamak as wl
 
     cfg = tk.TokamakConfig()
-    cuda_step.LAUNCHES = 0
+    profiling.launch_counts(zero=True)
     out = wl.run(cfg, nm=NM, backend="kernel", with_reference=False,
                  device=dev)
-    launches = cuda_step.LAUNCHES
+    launches = profiling.launch_counts()["rollout"]
     (r0, th0), _ = tk.test_initial_conditions(cfg)
     out.update(wl.one_turn_gd(cfg, out["traj"], r0, th0, dev))
     res = dict(training_error=out["training_error"],
@@ -541,7 +540,6 @@ def phase_split_main(dev):
     evaluations of the fits are counted (the symplectic GPs' and the aux
     GPs')."""
     from sympgpr_tpu_torch.gp import likelihood
-    from sympgpr_tpu_torch.ops import cuda_step
     from sympgpr_tpu_torch.systems import tokamak as tk
     from sympgpr_tpu_torch.workloads import tokamak as wl
 
@@ -557,7 +555,7 @@ def phase_split_main(dev):
 
     for k in evals:
         setattr(likelihood, k, counted(k))
-    cuda_step.LAUNCHES = cuda_step.LAUNCHES_SPLIT = 0
+    profiling.launch_counts(zero=True)
     t0 = time.perf_counter()
     try:
         out = wl.run(cfg, optimizer="cmaes", backend="kernel",
@@ -567,8 +565,8 @@ def phase_split_main(dev):
         for k, fn in nlls.items():
             setattr(likelihood, k, fn)
     wall = time.perf_counter() - t0
-    launches = cuda_step.LAUNCHES
-    launches_split = cuda_step.LAUNCHES_SPLIT
+    counts = profiling.launch_counts()
+    launches, launches_split = counts["rollout"], counts["rollout_split"]
     (r0, th0), _ = tk.test_initial_conditions(cfg)
     t0 = time.perf_counter()
     out.update(wl.one_turn_gd(cfg, out["traj"], r0, th0, dev))
@@ -805,9 +803,10 @@ def phase_large_main(dev):
                bench_r05_row=BENCH_R05_ROW, gates=GATES_LARGE,
                hist_first_last=[hist[0], hist[-1]])
     emit("large_main", **res)
-    for k, n in launches.items():  # its rollouts run no Split instance
-        assert n > 0 or k == "rollout_split", \
-            f"the large-N path launched no {k} kernel"
+    for k in profiling.KERNELS:
+        assert launches[k] > 0, f"the large-N path launched no {k} kernel"
+    assert launches["rollout_cluster"] > 0, \
+        "the N=4096 rollout ran no cluster team"
     assert np.all(np.isfinite(hist)), hist
     assert out["nll_last"] < out["nll_first"], res
     assert out["dtype"] == "float32" and sgp.X.device.type == "cuda"
@@ -1005,9 +1004,8 @@ def phase_large_n_main(dev) -> dict:
                           stderr_tail=r.stderr[-2000:]),
                main_s=t_main, wall_s=time.perf_counter() - t0)
     emit("large_n_main", **res)
-    for k, count in launches.items():  # its rollouts run no cluster team
-        assert count > 0 or k in ("rollout_cluster", "rollout_split"), \
-            f"large_n launched no {k} kernel"
+    for k in profiling.KERNELS:
+        assert launches[k] > 0, f"large_n launched no {k} kernel"
     assert set(m["launches"]) == set(large_n.STAGE_KERNELS), m["launches"]
     for stage, kernels in large_n.STAGE_KERNELS.items():
         got = {k for k, c in m["launches"][stage].items() if c > 0}
@@ -1378,14 +1376,15 @@ def phase_escalation(dev):
     z = torch.tensor(rng.normal(size=2 * n) * 0.1, dtype=torch.float32,
                      device=dev)
     threshold, cuda_cov.NLL_THRESHOLD = cuda_cov.NLL_THRESHOLD, 1
-    before = cuda_cov.LAUNCHES_BWD
+    before = profiling.launch_counts()["cov_bwd"]
     try:
         _, hist, mse, tim = fit_sympgp_large(
             X, z, sig2n=1e-12, theta0=(0.5, 2.5, 2.0), steps=5, lr=5e-2)
     finally:
         cuda_cov.NLL_THRESHOLD = threshold
     res = dict(tim, nll_last=float(hist[-1]), train_mse=mse,
-               contraction_launches=cuda_cov.LAUNCHES_BWD - before)
+               contraction_launches=profiling.launch_counts()["cov_bwd"]
+               - before)
     emit("escalation", **res)
     assert res["contraction_launches"] > 0
     assert tim["jitter_escalations"] >= 1 and tim["sig2n_used"] > 1e-12
@@ -1434,13 +1433,12 @@ def phase_stdmap_main(dev):
     nm = 100) through the kernel backend (float32, mod_p and pdiff in the
     kernel; the explicit method's Algorithm 2) and the float64 generic
     backend."""
-    from sympgpr_tpu_torch.ops import cuda_step
     from sympgpr_tpu_torch.systems.standard_map import StandardMapConfig
     from sympgpr_tpu_torch.workloads import standard_map as wl
 
     cfg = StandardMapConfig()
     res, models = {}, {}
-    cuda_step.LAUNCHES = 0
+    profiling.launch_counts(zero=True)
     for method in ("implicit", "explicit"):
         out = wl.run(cfg, method=method, backend="kernel", device=dev)
         t = out["traj"]
@@ -1454,7 +1452,7 @@ def phase_stdmap_main(dev):
             D_finite=bool(torch.isfinite(t.pdiff).all()),
             dtype=str(t.q.dtype), shape=list(t.q.shape))
         models[method] = out["models"]
-    launches = cuda_step.LAUNCHES
+    launches = profiling.launch_counts()["rollout"]
     for method in ("implicit", "explicit"):
         out = wl.run(cfg, method=method, backend="generic", device=dev)
         res[method].update(
@@ -1485,11 +1483,10 @@ def phase_pendulum_main(dev):
     symplectic-Euler comparator)."""
     import importlib
 
-    from sympgpr_tpu_torch.ops import cuda_step
     from sympgpr_tpu_torch.systems.pendulum import PendulumConfig
 
     res, models = {}, {}
-    cuda_step.LAUNCHES = 0
+    profiling.launch_counts(zero=True)
     for name, (fields, _, _) in PENDULUM.items():
         wl = importlib.import_module(
             f"sympgpr_tpu_torch.workloads.pendulum_{name}")
@@ -1506,7 +1503,7 @@ def phase_pendulum_main(dev):
         if "period_ratio" in out:
             res[name]["period_ratio"] = out["period_ratio"]
         models[name] = out["models"]
-    launches = cuda_step.LAUNCHES
+    launches = profiling.launch_counts()["rollout"]
     for name, (fields, _, _) in PENDULUM.items():
         wl = importlib.import_module(
             f"sympgpr_tpu_torch.workloads.pendulum_{name}")
@@ -1561,10 +1558,8 @@ def phase_stdmap_large(dev):
                gate_one_step_mse=GATE_STDMAP_LARGE_MSE,
                verdict_one_step_mse_tpu_run=VERDICT_STDMAP_LARGE_MSE_TPU)
     emit("stdmap_large", **res)
-    # the wrap mode runs no cluster team and one map at the old q
-    for k, n in launches.items():
-        assert n > 0 or k in ("rollout_cluster", "rollout_split"), \
-            f"standard_map_large launched no {k} kernel"
+    for k in profiling.KERNELS:
+        assert launches[k] > 0, f"standard_map_large launched no {k} kernel"
     assert out["nll_decreased"], res
     assert out["finite_frac"] == 1.0 and out["pdiff_finite"], res
     assert out["one_step_mse"] < GATE_STDMAP_LARGE_MSE, res
@@ -1633,12 +1628,11 @@ def _ulp_sensitivity(pm, q0, p0, nm, kw) -> list:
 def _sum_q_with_A(pm, q, P):
     """A wrong Algorithm 2 on purpose: its q update with the q-side factor
     A left in (dq = sum a1 h A B), at the plain version's P."""
-    from sympgpr_tpu_torch.maps import fast_apply
+    from sympgpr_tpu_torch.kernels import PER_SE
     from sympgpr_tpu_torch.ops import cuda_step as cs
 
     sgp, _ = cs._models_of(pm)
-    A, _, _ = fast_apply._q_factors("per_se", sgp.X[None, :, 0] - q[:, None],
-                                    sgp.params)
+    A, _, _ = PER_SE.q_factors(sgp.X[None, :, 0] - q[:, None], sgp.params)
     ily2 = 1.0 / sgp.params[1] ** 2
     dP = sgp.X[None, :, 1] - P[:, None]
     a1 = pm.a1[: pm.ns]
@@ -2182,10 +2176,8 @@ def phase_bench_main(dev, smi: str, models) -> dict:
     assert math.isfinite(diag["ref_size_mean_Eosc"]), diag
     assert isinstance(large, dict) and isinstance(tok, dict)
     assert detail["nuts_samples_per_s"] > 0, detail
-    # its cut sizes take no cluster, its maps one map at the old q
-    for k, n in diag["launches"].items():
-        assert n > 0 or k in ("rollout_cluster", "rollout_split"), \
-            f"bench launched no {k} kernel"
+    for k in profiling.KERNELS:
+        assert diag["launches"][k] > 0, f"bench launched no {k} kernel"
     f32, spread = check["first_rows"], check["every_10th_row"]
     assert check["launches"] > 0, check
     assert check["steps"] == [10_000, 30] and check["lost"] <= GATE_LOST
@@ -2295,8 +2287,6 @@ def phase_pert_henon_main(dev):
     model of the absolute P at deployment jitter 1e-5; the SE x SE
     instance without a wrap of q at 1e-3) and the float64 generic
     backend."""
-    from sympgpr_tpu_torch.ops import cuda_step
-
     res, models = {}, {}
     profiling.launch_counts(zero=True)
     for name in PERT_HENON:
@@ -2311,7 +2301,7 @@ def phase_pert_henon_main(dev):
             dtype=str(t.q.dtype), shape=list(t.q.shape),
             **_stage_times(out))
         models[name] = out["models"]
-    launches = cuda_step.LAUNCHES
+    launches = profiling.launch_counts()["rollout"]
     for name in PERT_HENON:
         out = _pert_henon_run(name, "generic", dev)
         res[name].update(
@@ -2726,15 +2716,13 @@ def phase_adam_main(dev, split_sets, lbfgs_models):
     batch_launches = profiling.launch_counts()
 
     cfg = tk.TokamakConfig()
-    from sympgpr_tpu_torch.ops import cuda_step
-
-    cuda_step.LAUNCHES = 0
+    profiling.launch_counts(zero=True)
     t0 = time.perf_counter()
     out = wl.run(cfg, optimizer="adam", backend="kernel",
                  with_reference=False, device=dev)
     sync()
     t_run = time.perf_counter() - t0
-    launches = cuda_step.LAUNCHES
+    launches = profiling.launch_counts()["rollout"]
     (r0, th0), _ = tk.test_initial_conditions(cfg)
     out.update(wl.one_turn_gd(cfg, out["traj"], r0, th0, dev))
 

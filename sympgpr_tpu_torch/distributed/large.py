@@ -46,13 +46,11 @@ from sympgpr_tpu_torch.distributed.init import (
     axis_group,
     broadcast_from,
 )
-from sympgpr_tpu_torch.gp.covariance import hess_blocks
+from sympgpr_tpu_torch.gp.covariance import hess_blocks, product_blocks
 from sympgpr_tpu_torch.kernels.variants import Kernel
 from sympgpr_tpu_torch.profiling import _sync
 
 Tensor = torch.Tensor
-
-_PRODUCT = ("per_se", "se_se", "per_se_freq")
 
 
 # --------------------------------------------------------------------------
@@ -73,21 +71,11 @@ def deinterleave_z(zi: Tensor) -> Tensor:
 def _row_blocks(kernel: Kernel, Xr: Tensor, Xc: Tensor, params: Tensor):
     """Hxx, Hxy, Hyy blocks (m, Nc) between row points and all points.
 
-    Closed form (shared A/B factors) for the product family; autodiff
+    Closed form (``product_blocks``) for the product family; autodiff
     Hessian blocks otherwise (``sum_per_se``, whose mixed block is zero).
     """
-    if kernel.name in _PRODUCT:
-        from sympgpr_tpu_torch.maps.fast_apply import _q_factors
-
-        ly = params[1]
-        dq = Xr[:, None, 0] - Xc[None, :, 0]
-        dP = Xr[:, None, 1] - Xc[None, :, 1]
-        A, sp, spp = _q_factors(kernel.name, dq, params)
-        B = torch.exp(-(dP**2) / (2.0 * ly**2))
-        ily2 = 1.0 / ly**2
-        AB = A * B
-        return ((spp - sp**2) * AB, -sp * dP * ily2 * AB,
-                (ily2 - dP**2 * ily2**2) * AB)
+    if kernel.product:
+        return product_blocks(kernel, Xr, Xc, params)
     H = hess_blocks(kernel, Xr, Xc, params)
     return H[..., 0, 0], H[..., 0, 1], H[..., 1, 1]
 

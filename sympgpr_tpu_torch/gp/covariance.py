@@ -43,33 +43,33 @@ def build_Kreg(kernel: Kernel, X: Tensor, X0: Tensor, params: Tensor,
     return sig * K
 
 
-_FAST_COV = ("per_se", "se_se", "per_se_freq")
+def product_blocks(kernel: Kernel, X: Tensor, X0: Tensor, params: Tensor):
+    """(dxdx, dxdy, dydy), each (..., N, N0) without sig, for a product
+    kernel A(dq) * B(dP) (``Kernel.product``), from the shared factors of
+    ``kernel.q_factors``; leading batch dims broadcast."""
+    ly = params[1]
+    dq = X[..., :, None, 0] - X0[..., None, :, 0]
+    dP = X[..., :, None, 1] - X0[..., None, :, 1]
+    A, sp, spp = kernel.q_factors(dq, params)
+    B = torch.exp(-(dP**2) / (2.0 * ly**2))
+    ily2 = 1.0 / ly**2
+    AB = A * B
+    return ((spp - sp**2) * AB, -sp * dP * ily2 * AB,
+            (ily2 - dP**2 * ily2**2) * AB)
 
 
 def build_K_fast(kernel: Kernel, X: Tensor, X0: Tensor, params: Tensor,
                  sig: Tensor) -> Tensor:
     """Closed-form covariance for product kernels A(dq) * B(dP).
 
-    All four blocks come from the shared factors of
-    ``maps.fast_apply._q_factors``; kernels outside the product family use
-    ``build_K``.  Leading batch dims broadcast: X (..., N, 2), X0
-    (..., N0, 2), each of ``params[i]`` and sig of shape (..., 1, 1) give
-    (..., 2N, 2N0) (``likelihood.nll_batched``).
+    All four blocks come from ``product_blocks``; kernels outside the
+    product family use ``build_K``.  Leading batch dims broadcast: X
+    (..., N, 2), X0 (..., N0, 2), each of ``params[i]`` and sig of shape
+    (..., 1, 1) give (..., 2N, 2N0) (``likelihood.nll_batched``).
     """
-    if kernel.name not in _FAST_COV:
+    if not kernel.product:
         return build_K(kernel, X, X0, params, sig)
-    from sympgpr_tpu_torch.maps.fast_apply import _q_factors
-
-    ly = params[1]
-    dq = X[..., :, None, 0] - X0[..., None, :, 0]
-    dP = X[..., :, None, 1] - X0[..., None, :, 1]
-    A, sp, spp = _q_factors(kernel.name, dq, params)
-    B = torch.exp(-(dP**2) / (2.0 * ly**2))
-    ily2 = 1.0 / ly**2
-    AB = A * B
-    dxdx = (spp - sp**2) * AB
-    dydy = (ily2 - dP**2 * ily2**2) * AB
-    dxdy = -sp * dP * ily2 * AB
+    dxdx, dxdy, dydy = product_blocks(kernel, X, X0, params)
     return sig * torch.cat([torch.cat([dxdx, dxdy], -1),
                             torch.cat([dxdy, dydy], -1)], -2)
 

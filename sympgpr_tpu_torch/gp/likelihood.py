@@ -28,12 +28,7 @@ import math
 import numpy as np
 import torch
 
-from sympgpr_tpu_torch.gp.covariance import (
-    _FAST_COV,
-    build_K,
-    build_K_fast,
-    build_Kreg,
-)
+from sympgpr_tpu_torch.gp.covariance import build_K, build_K_fast, build_Kreg
 from sympgpr_tpu_torch.kernels.variants import Kernel
 from sympgpr_tpu_torch.linalg.triangular import spd_inverse_from_chol
 from sympgpr_tpu_torch.ops import cuda_cov, cuda_matvec
@@ -128,7 +123,7 @@ def nll_batched(kernel: Kernel, params: Tensor, sig: Tensor, sig2n,
     the host once per call (the only host read on the path); eigh runs on
     them alone (and reads its own status back, on that rare path only).
     """
-    if not reg and kernel.name in _FAST_COV:
+    if not reg and kernel.product:
         K = build_K_fast(kernel, X, X, params.T[..., None, None],
                          sig[:, None, None])
     else:

@@ -34,6 +34,10 @@ class Kernel:
       fn: ``fn(u, v, params) -> scalar`` with ``u, v`` of shape ``(2,)``.
       separable: True for a sum k_q + k_P (the mixed block vanishes and the
         map is explicit, Algorithm 2).
+      code: its kind in the CUDA sources; None where they hold none.
+      q_factors: ``(dq, params) -> (A, s', s'')`` of the q-side factor
+        A = exp(-s(dq)) (a sum's q addend's); None: autodiff paths only.
+      learns_freq: ``params[2]`` is the q-side frequency (else it is 1/2).
     """
 
     name: str
@@ -41,6 +45,20 @@ class Kernel:
     fn: Callable[[Tensor, Tensor, Tensor], Tensor] = dataclasses.field(
         compare=False)
     separable: bool = False
+    code: int | None = None
+    q_factors: Callable[[Tensor, Tensor], tuple[Tensor, Tensor, Tensor]] \
+        | None = dataclasses.field(default=None, compare=False)
+    learns_freq: bool = False
+
+    @property
+    def fast_map(self) -> bool:
+        """The factorized map path (``maps/fast_apply.py``) applies."""
+        return self.q_factors is not None
+
+    @property
+    def product(self) -> bool:
+        """A(dq) * B(dP), B = exp(-dP^2 / (2 ly^2)): closed-form blocks."""
+        return self.fast_map and not self.separable
 
     def grad_u(self, u: Tensor, v: Tensor, params: Tensor) -> Tensor:
         """(2,) gradient with respect to the first point."""
@@ -85,14 +103,41 @@ def _per_se_freq(u: Tensor, v: Tensor, p: Tensor) -> Tensor:
     )
 
 
-PER_SE = Kernel("per_se", 2, _per_se)
-SE_SE = Kernel("se_se", 2, _se_se)
-SUM_PER_SE = Kernel("sum_per_se", 2, _sum_per_se, separable=True)
-PER_SE_FREQ = Kernel("per_se_freq", 3, _per_se_freq)
+def _per_se_q(d: Tensor, p: Tensor):
+    lx = p[0]
+    s = torch.sin(0.5 * d) ** 2 / (2.0 * lx**2)
+    sp = torch.sin(d) / (4.0 * lx**2)
+    spp = torch.cos(d) / (4.0 * lx**2)
+    return torch.exp(-s), sp, spp
+
+
+def _se_se_q(d: Tensor, p: Tensor):
+    lx = p[0]
+    s = d**2 / (2.0 * lx**2)
+    sp = d / lx**2
+    spp = torch.ones_like(d) / lx**2
+    return torch.exp(-s), sp, spp
+
+
+def _per_se_freq_q(d: Tensor, p: Tensor):
+    lx, f = p[0], p[2]
+    s = torch.sin(f * d) ** 2 / (2.0 * lx**2)
+    sp = f * torch.sin(2.0 * f * d) / (2.0 * lx**2)
+    spp = f**2 * torch.cos(2.0 * f * d) / lx**2
+    return torch.exp(-s), sp, spp
+
+
+PER_SE = Kernel("per_se", 2, _per_se, code=0, q_factors=_per_se_q)
+SE_SE = Kernel("se_se", 2, _se_se, code=1, q_factors=_se_se_q)
+PER_SE_FREQ = Kernel("per_se_freq", 3, _per_se_freq, code=2,
+                     q_factors=_per_se_freq_q, learns_freq=True)
+SUM_PER_SE = Kernel("sum_per_se", 2, _sum_per_se, separable=True, code=3,
+                    q_factors=_per_se_q)
 
 KERNELS: dict[str, Kernel] = {
     k.name: k for k in (PER_SE, SE_SE, SUM_PER_SE, PER_SE_FREQ)
 }
+BY_CODE: dict[int, Kernel] = {k.code: k for k in KERNELS.values()}
 
 
 def get_kernel(name: str) -> Kernel:

@@ -2,8 +2,9 @@
 port of ``sympgpr_tpu/maps/fast_apply.py``).
 
 For k(u, v) = A(dq) * B(dP) with B = exp(-dP^2 / (2 ly^2)) and
-A = exp(-s(dq)), the q-side factors (A, s', s'') are invariant across the
-Newton iterations of one map step, so they are folded once per step into
+A = exp(-s(dq)), the q-side factors (A, s', s'') (``Kernel.q_factors``) are
+invariant across the Newton iterations of one map step, so they are folded
+once per step into
 
   pGP(P)       = sum_i (c0 + c1 dP) B(dP)
   d pGP / d P  = sum_i (c0 dP/ly^2 + c1 (dP^2/ly^2 - 1)) B(dP)
@@ -33,36 +34,6 @@ from sympgpr_tpu_torch.maps.symplectic import (
 
 Tensor = torch.Tensor
 
-_FAST_KERNELS = ("per_se", "se_se", "per_se_freq")
-_FAST_SUM_KERNELS = ("sum_per_se",)
-# a sum kernel's q-side addend determines its A-factor set
-_SUM_QSIDE = {"sum_per_se": "per_se"}
-
-
-def supports(kernel_name: str) -> bool:
-    return kernel_name in _FAST_KERNELS + _FAST_SUM_KERNELS
-
-
-def _q_factors(name: str, d: Tensor, params: Tensor):
-    """A(d), s'(d), s''(d) for the q-side factor A = exp(-s)."""
-    lx = params[0]
-    if name == "per_se":
-        s = torch.sin(0.5 * d) ** 2 / (2.0 * lx**2)
-        sp = torch.sin(d) / (4.0 * lx**2)
-        spp = torch.cos(d) / (4.0 * lx**2)
-    elif name == "se_se":
-        s = d**2 / (2.0 * lx**2)
-        sp = d / lx**2
-        spp = torch.ones_like(d) / lx**2
-    elif name == "per_se_freq":
-        f = params[2]
-        s = torch.sin(f * d) ** 2 / (2.0 * lx**2)
-        sp = f * torch.sin(2.0 * f * d) / (2.0 * lx**2)
-        spp = f**2 * torch.cos(2.0 * f * d) / lx**2
-    else:
-        raise ValueError(name)
-    return torch.exp(-s), sp, spp
-
 
 class StepCoeffs(NamedTuple):
     """Newton-invariant per-(orbit, train-point) coefficients."""
@@ -79,7 +50,7 @@ def p_explicit_sum(sgp: SympGP, q: Tensor) -> Tensor:
     """pGP for a separable sum kernel; depends on q only."""
     n = sgp.n_train
     d = sgp.X[None, :, 0] - q[:, None]
-    A, sp, spp = _q_factors(_SUM_QSIDE[sgp.kernel.name], d, sgp.params)
+    A, sp, spp = sgp.kernel.q_factors(d, sgp.params)
     a0 = sgp.alpha.reshape(2, n)[0]
     return sgp.sig * torch.sum(a0[None, :] * (spp - sp * sp) * A, dim=-1)
 
@@ -101,7 +72,7 @@ def precompute_step(sgp: SympGP, q: Tensor) -> StepCoeffs:
     params = sgp.params
     ly = params[1]
     d = sgp.X[:, 0][None, :] - q[:, None]  # (B, N), dq = u_q - v_q
-    A, sp, spp = _q_factors(sgp.kernel.name, d, params)
+    A, sp, spp = sgp.kernel.q_factors(d, params)
     a = sgp.alpha.reshape(2, n)
     a0 = a[0][None, :]
     a1 = a[1][None, :]
@@ -138,7 +109,7 @@ def aux_guess(aux: AuxGP, q: Tensor, p: Tensor) -> Tensor:
     params = aux.params
     ly = params[1]
     d = aux.X[None, :, 0] - q[:, None]
-    A, _, _ = _q_factors(aux.kernel.name, d, params)
+    A, _, _ = aux.kernel.q_factors(d, params)
     dP = aux.X[None, :, 1] - p[:, None]
     Bf = torch.exp(-(dP**2) / (2.0 * ly**2))
     mean = aux.sig * torch.sum(aux.alpha[None, :] * A * Bf, dim=-1)
@@ -192,7 +163,7 @@ def map_step(
     Returns (Q, P, dP): the new point (P wrapped by ``mod_p``; NaN where
     an orbit is lost) and the unwrapped momentum increment.
     """
-    is_sum = sgp.kernel.name in _FAST_SUM_KERNELS
+    is_sum = sgp.kernel.separable
     if is_sum:
         co = None
         P = p - p_explicit_sum(sgp, q)
@@ -212,9 +183,9 @@ def map_step(
 
 
 def _check_fast(sgp: SympGP, cfg: MapConfig) -> None:
-    if not supports(sgp.kernel.name):
+    if not sgp.kernel.fast_map:
         raise ValueError(f"no fast path for kernel {sgp.kernel.name!r}")
-    if sgp.kernel.name in _FAST_SUM_KERNELS and not cfg.explicit:
+    if sgp.kernel.separable and not cfg.explicit:
         raise ValueError("sum kernels imply the explicit map (Algorithm 2)")
 
 

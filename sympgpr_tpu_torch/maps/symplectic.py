@@ -222,7 +222,7 @@ def apply_map(
     """
     from sympgpr_tpu_torch.maps import fast_apply
 
-    if prefer_fast and fast_apply.supports(sgp.kernel.name):
+    if prefer_fast and sgp.kernel.fast_map:
         return fast_apply.apply_map_fast(sgp, aux, q0, p0, nm, cfg,
                                          loss_pre, loss_post)
     return _apply_map_generic(sgp, aux, q0, p0, nm, cfg, loss_pre,
@@ -254,7 +254,7 @@ def apply_map_split(
     if len(sgps) != n_maps or len(auxes) != n_maps:
         raise ValueError(f"{n_maps} sub-maps, got {len(sgps)} models and "
                          f"{len(auxes)} aux models")
-    if prefer_fast and all(fast_apply.supports(s.kernel.name) for s in sgps):
+    if prefer_fast and all(s.kernel.fast_map for s in sgps):
         return fast_apply.apply_map_split_fast(sgps, auxes, q0, p0, nm, cfg,
                                                loss_post=loss_post)
     return _iterate(

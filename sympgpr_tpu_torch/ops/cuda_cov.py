@@ -18,8 +18,7 @@ kernels ``_cov_tile`` and ``_cov_bwd_tile``, each with two entries:
 
 ``BuildK`` ties the two general entries together as one autograd function.
 Each wrapper runs its plain PyTorch version on CPU tensors and launches its
-kernel on CUDA tensors (or raises).  ``LAUNCHES_FWD`` and ``LAUNCHES_BWD``
-count kernel launches of either entry.
+kernel on CUDA tensors (or raises).
 """
 
 from __future__ import annotations
@@ -28,17 +27,14 @@ import ctypes
 
 import torch
 
-from sympgpr_tpu_torch.kernels.variants import Kernel
+from sympgpr_tpu_torch.kernels import KERNELS, SE_SE, SUM_PER_SE, Kernel
 from sympgpr_tpu_torch.ops import _build
+from sympgpr_tpu_torch.profiling import count
 
 Tensor = torch.Tensor
 
-KINDS = {"per_se": 0, "se_se": 1, "per_se_freq": 2, "sum_per_se": 3}
 TILE = 64  # pair tile of csrc/cov_blocks.cu
 NLL_THRESHOLD = 512  # minimum N for the kernel build in the NLL
-
-LAUNCHES_FWD = 0  # launches of the build kernel in this process
-LAUNCHES_BWD = 0  # launches of the contraction kernels in this process
 
 
 def nll_threshold() -> int:
@@ -48,7 +44,7 @@ def nll_threshold() -> int:
 
 def want_cuda_build(kernel: Kernel, X: Tensor) -> bool:
     """Dispatch of the NLL covariance build (``want_pallas_build``)."""
-    return (kernel.name in KINDS and X.dtype == torch.float32
+    return (kernel.code is not None and X.dtype == torch.float32
             and X.shape[0] >= nll_threshold())
 
 
@@ -59,7 +55,7 @@ def _q_side(kind: int, dq: Tensor, lx, f):
     """s, s', s'' of the q-factor A = exp(-s(dq)), and sin/cos of f dq
     for the periodic kinds (None for se_se)."""
     i2 = 0.5 / (lx * lx)
-    if kind == KINDS["se_se"]:  # s = dq^2 / (2 lx^2)
+    if kind == SE_SE.code:  # s = dq^2 / (2 lx^2)
         return (dq * dq * i2, 2.0 * dq * i2,
                 torch.full_like(dq, 1.0) * (2.0 * i2), None, None)
     # periodic: s = sin^2(f dq) / (2 lx^2); per_se is f = 1/2
@@ -76,7 +72,7 @@ def tile_blocks(kind: int, dq: Tensor, dP: Tensor, lx, ly, sig, f):
     s, sp, spp, _, _ = _q_side(kind, dq, lx, f)
     ily2 = 1.0 / (ly * ly)
     t = dP * dP * (0.5 * ily2)
-    if kind == KINDS["sum_per_se"]:  # separable: the mixed block vanishes
+    if kind == SUM_PER_SE.code:  # separable: the mixed block vanishes
         A = sig * torch.exp(-s)
         B = sig * torch.exp(-t)
         return ((spp - sp * sp) * A, torch.zeros_like(dq),
@@ -98,7 +94,7 @@ def _pair_terms(kind: int, dq: Tensor, dP: Tensor, lx, ly, f,
     t = dP2 * (0.5 * v)
     h = v - dP2 * v * v
     s, sp, spp, sh, ch = _q_side(kind, dq, lx, f)
-    if kind == KINDS["se_se"]:
+    if kind == SE_SE.code:
         ds = dsp = dspp = torch.zeros_like(dq)
     else:
         shch = sh * ch
@@ -108,7 +104,7 @@ def _pair_terms(kind: int, dq: Tensor, dP: Tensor, lx, ly, f,
         dspp = 4.0 * f * i2 * cos2 - 8.0 * f * f * i2 * shch * dq
     D = spp - sp * sp
     dD = dspp - 2.0 * sp * dsp
-    if kind == KINDS["sum_per_se"]:
+    if kind == SUM_PER_SE.code:
         A0 = torch.exp(-s)
         B0 = torch.exp(-t)
         kxx0 = D * A0
@@ -140,7 +136,8 @@ def _scal(name: str, params, sig, X: Tensor, jitter=0.0) -> Tensor:
         jitter = jitter.to(dtype=X.dtype, device=X.device).reshape(())
     else:
         jitter = torch.full_like(sig, jitter)
-    f = params[2] if name == "per_se_freq" else torch.full_like(sig, 0.5)
+    f = (params[2] if _kernel(name).learns_freq
+         else torch.full_like(sig, 0.5))
     return torch.stack([params[0], params[1], sig, f, jitter])
 
 
@@ -153,7 +150,7 @@ def build_K_blocks_reference(name: str, X: Tensor, X0: Tensor, params,
     """Plain version of the build kernel: (2N, 2N0) covariance."""
     lx, ly, s, f, _ = _scal(name, params, sig, X)
     dq, dP = _pairs(X, X0)
-    kxx, kxy, kyy = tile_blocks(KINDS[name], dq, dP, lx, ly, s, f)
+    kxx, kxy, kyy = tile_blocks(_kernel(name).code, dq, dP, lx, ly, s, f)
     return torch.cat([torch.cat([kxx, kxy], 1), torch.cat([kxy, kyy], 1)], 0)
 
 
@@ -165,9 +162,10 @@ def build_Ky_reference(name: str, X: Tensor, params, sig, jitter) -> Tensor:
 
 
 def _assemble(name: str, params: Tensor, sig: Tensor, g: Tensor):
-    """(dparams, dsig) from g = (dlx, dly, dsig, df): per_se_freq gets
-    three params, the others two; unused trailing params get zeros."""
-    dparams = torch.cat([g[:2], g[3:]]) if name == "per_se_freq" else g[:2]
+    """(dparams, dsig) from g = (dlx, dly, dsig, df): three params where the
+    kernel learns its frequency, else two; unused trailing ones get zeros."""
+    dparams = (torch.cat([g[:2], g[3:]]) if _kernel(name).learns_freq
+               else g[:2])
     if params.shape[0] > dparams.shape[0]:
         dparams = torch.cat(
             [dparams, g.new_zeros(params.shape[0] - dparams.shape[0])])
@@ -181,7 +179,7 @@ def cov_param_grads_reference(name: str, X: Tensor, X0: Tensor, params, sig,
     N, N0 = X.shape[0], X0.shape[0]
     lx, ly, s, f, _ = _scal(name, params, sig, X)
     dq, dP = _pairs(X, X0)
-    o = _pair_terms(KINDS[name], dq, dP, lx, ly, f, Kbar[:N, :N0],
+    o = _pair_terms(_kernel(name).code, dq, dP, lx, ly, f, Kbar[:N, :N0],
                     Kbar[:N, N0:] + Kbar[N:, :N0], Kbar[N:, N0:])
     o0, o1, o2, o3 = (t.sum() for t in o)
     g = torch.stack([o0 * s * (-2.0 / lx), o1 * s * (-2.0 / ly), o2, o3 * s])
@@ -222,11 +220,11 @@ def _device_of(X: Tensor, what: str) -> str:
     return X.device.type
 
 
-def _kind(name: str) -> int:
-    if name not in KINDS:
+def _kernel(name: str) -> Kernel:
+    if name not in KERNELS:
         raise ValueError(f"no covariance kernel for {name!r}; "
-                         f"kernels: {sorted(KINDS)}")
-    return KINDS[name]
+                         f"kernels: {sorted(KERNELS)}")
+    return KERNELS[name]
 
 
 _FWD_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -241,7 +239,6 @@ def _tile_count(N: int, N0: int, sym: bool) -> int:
 
 
 def _fwd(name: str, X: Tensor, X0: Tensor, scal: Tensor) -> Tensor:
-    global LAUNCHES_FWD
     _validate(X, X0, scal)
     N, N0 = X.shape[0], X0.shape[0]
     K = torch.empty((2 * N, 2 * N0), dtype=X.dtype, device=X.device)
@@ -249,15 +246,16 @@ def _fwd(name: str, X: Tensor, X0: Tensor, scal: Tensor) -> Tensor:
     fn = _build.function("cov_blocks", symbol, _FWD_ARGS)
     with torch.cuda.device(X.device):
         rc = fn(_build.ptr(scal), _build.ptr(X), _build.ptr(X0),
-                _build.ptr(K), N, N0, KINDS[name], _build.stream(X.device))
+                _build.ptr(K), N, N0, _kernel(name).code,
+                _build.stream(X.device))
     _build.check(rc, "covariance build")
-    LAUNCHES_FWD += 1
+    count("cov_fwd")
     return K
 
 
 def build_K_blocks(name: str, X: Tensor, X0: Tensor, params, sig) -> Tensor:
     """(2N, 2N0) covariance; the kernel on CUDA, the plain version on CPU."""
-    _kind(name)
+    _kernel(name)
     if _device_of(X, "covariance build") == "cpu":
         return build_K_blocks_reference(name, X, X0, params, sig)
     return _fwd(name, X, X0, _scal(name, params, sig, X))
@@ -267,7 +265,7 @@ def build_Ky(name: str, X: Tensor, params, sig, jitter) -> Tensor:
     """(2N, 2N) K(X, X) + jitter I in one launch of the build kernel on
     CUDA (``jitter`` a number or a 0-d tensor, read on the device), the
     plain version on CPU."""
-    _kind(name)
+    _kernel(name)
     if _device_of(X, "covariance build") == "cpu":
         return build_Ky_reference(name, X, params, sig, jitter)
     return _fwd(name, X, X, _scal(name, params, sig, X, jitter))
@@ -275,7 +273,6 @@ def build_Ky(name: str, X: Tensor, params, sig, jitter) -> Tensor:
 
 def _bwd(name: str, X: Tensor, X0: Tensor, params, sig, G: Tensor,
          alpha: Tensor | None):
-    global LAUNCHES_BWD
     scal = _scal(name, params, sig, X)
     sym = alpha is not None
     _validate(X, X0, scal, G, *((alpha,) if sym else ()))
@@ -294,10 +291,10 @@ def _bwd(name: str, X: Tensor, X0: Tensor, params, sig, G: Tensor,
     with torch.cuda.device(X.device):
         rc = fn(_build.ptr(scal), _build.ptr(X), _build.ptr(X0),
                 _build.ptr(G), _build.ptr(alpha) if sym else None,
-                _build.ptr(partial), _build.ptr(out), N, N0, KINDS[name],
-                int(sym), _build.stream(X.device))
+                _build.ptr(partial), _build.ptr(out), N, N0,
+                _kernel(name).code, int(sym), _build.stream(X.device))
     _build.check(rc, "covariance contraction")
-    LAUNCHES_BWD += 1
+    count("cov_bwd")
     return _assemble(name, params, sig, out.to(X.dtype))
 
 
@@ -305,7 +302,7 @@ def cov_param_grads(name: str, X: Tensor, X0: Tensor, params, sig,
                     Kbar: Tensor):
     """(dparams, dsig) = <Kbar, dK/dtheta> for the (2N, 2N0) build; the
     kernels on CUDA, the plain version on CPU."""
-    _kind(name)
+    _kernel(name)
     if _device_of(X, "covariance contraction") == "cpu":
         return cov_param_grads_reference(name, X, X0, params, sig, Kbar)
     return _bwd(name, X, X0, params, sig, Kbar, None)
@@ -316,7 +313,7 @@ def cov_param_grads_sym(name: str, X: Tensor, params, sig, S: Tensor,
     """(dparams, dsig) = <(S - alpha alpha^T) / 2, dK(X, X)/dtheta> for a
     symmetric S (2N, 2N) and alpha (2N,), without forming Kbar: the fused
     kernels on CUDA (half the pairs), the plain version on CPU."""
-    _kind(name)
+    _kernel(name)
     if _device_of(X, "covariance contraction") == "cpu":
         return cov_param_grads_sym_reference(name, X, params, sig, S, alpha)
     return _bwd(name, X, X, params, sig, S, alpha)

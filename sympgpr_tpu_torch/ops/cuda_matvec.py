@@ -9,7 +9,7 @@ no chain.  The hand-written CUDA kernel (``csrc/tri_matmul.cu``,
 ``matvec_kernel``) multiplies and sums in float64, rounds to S's dtype
 once, and sums each row in one fixed order, so two calls give the same
 bits.  CPU tensors run the plain version ``S @ x`` in float64; CUDA tensors
-launch the kernel or raise.  ``LAUNCHES`` counts kernel launches.
+launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -19,10 +19,9 @@ import ctypes
 import torch
 
 from sympgpr_tpu_torch.ops import _build
+from sympgpr_tpu_torch.profiling import count
 
 Tensor = torch.Tensor
-
-LAUNCHES = 0  # kernel launches made by matvec in this process
 
 _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
 
@@ -33,7 +32,6 @@ def matvec_reference(S: Tensor, x: Tensor) -> Tensor:
 
 
 def _launch(S: Tensor, x: Tensor) -> Tensor:
-    global LAUNCHES
     if S.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"matvec kernel takes float32 or float64, not "
                         f"{S.dtype}")
@@ -47,7 +45,7 @@ def _launch(S: Tensor, x: Tensor) -> Tensor:
         rc = fn(_build.ptr(S), _build.ptr(x), _build.ptr(y), n,
                 _build.stream(S.device))
     _build.check(rc, "matvec")
-    LAUNCHES += 1
+    count("matvec")
     return y
 
 

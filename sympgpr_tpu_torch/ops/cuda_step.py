@@ -17,9 +17,8 @@ the Split instances of the other modes.  Nothing falls back.
 ``rollout_in_kernel`` dispatches on the device of its inputs: CPU tensors
 go to the plain PyTorch version ``rollout_reference`` (the fast path of
 ``maps/fast_apply.py`` with fixed Newton iterations), CUDA tensors launch
-the kernel or raise.  ``LAUNCHES`` counts kernel launches,
-``LAUNCHES_CLUSTER`` those of them that ran cluster teams and
-``LAUNCHES_SPLIT`` those that ran a Split instance (``split_instance``).
+the kernel or raise.  Each launch is counted in ``profiling`` (``rollout``,
+``rollout_cluster``, ``rollout_split``).
 
 The kernel runs one orbit on a team of lanes, in one block or over a
 thread-block cluster; ``launch_geometry`` picks the team size, the block,
@@ -36,21 +35,15 @@ import math
 import torch
 
 from sympgpr_tpu_torch.gp.model import AuxGP, SympGP
-from sympgpr_tpu_torch.kernels.variants import get_kernel
+from sympgpr_tpu_torch.kernels.variants import BY_CODE, Kernel
 from sympgpr_tpu_torch.maps import fast_apply
 from sympgpr_tpu_torch.maps.symplectic import MapConfig
 from sympgpr_tpu_torch.ops import _build
-from sympgpr_tpu_torch.profiling import span
+from sympgpr_tpu_torch.profiling import count, span
 from sympgpr_tpu_torch.systems.tokamak import compute_r
 
 Tensor = torch.Tensor
 
-LAUNCHES = 0  # kernel launches made by rollout_in_kernel in this process
-LAUNCHES_CLUSTER = 0  # of them, launches whose orbits ran on cluster teams
-LAUNCHES_SPLIT = 0  # of them, launches of a Split instance (split_instance)
-
-_KIND = {"per_se": 0, "se_se": 1, "per_se_freq": 2, "sum_per_se": 3}
-_KIND_NAME = {v: k for k, v in _KIND.items()}
 NSCAL = 12  # lx, ly, alx, aly, delta, mod_q, freq, afreq, mod_p, 3x pad
 SMEM_LIMIT = 232448  # dynamic shared memory one block may use on Hopper
 
@@ -347,9 +340,15 @@ def _col(vals: list[Tensor], stride: int, dtype: torch.dtype,
 
 
 def _freq_of(model) -> Tensor | float:
-    if model is not None and model.kernel.name == "per_se_freq":
+    if model is not None and model.kernel.learns_freq:
         return model.params[2]
     return 0.0
+
+
+def _code(kernel: Kernel) -> int:
+    if kernel.code is None:
+        raise ValueError(f"no rollout kernel for kernel {kernel.name!r}")
+    return kernel.code
 
 
 def pack_models(sgp: SympGP, aux: AuxGP | None, mod_q: float | None,
@@ -374,11 +373,11 @@ def pack_models_split(sgps: list[SympGP], auxes: list[AuxGP | None],
     if len(sgps) != len(auxes) or not sgps:
         raise ValueError(f"need one aux model (or None) per sub-map; got "
                          f"{len(sgps)} and {len(auxes)}")
-    kind = _KIND[sgps[0].kernel.name]
-    if any(_KIND[s.kernel.name] != kind for s in sgps):
+    kind = _code(sgps[0].kernel)
+    if any(_code(s.kernel) != kind for s in sgps):
         raise ValueError("all sub-maps must share a kernel variant")
     aux0 = next((a for a in auxes if a is not None), None)
-    aux_kind = _KIND[aux0.kernel.name] if aux0 is not None else 0
+    aux_kind = _code(aux0.kernel) if aux0 is not None else 0
     deltas = {bool(a is not None and a.delta) for a in auxes}
     if len(deltas) > 1:
         raise ValueError("all sub-maps' aux models must share delta")
@@ -442,16 +441,15 @@ def _models_of(pm: PackedModels, m: int = 0) -> tuple[SympGP, AuxGP]:
     a = slice(m * pm.nas, (m + 1) * pm.nas)
     one = torch.ones((), dtype=sc.dtype, device=sc.device)
     none = torch.zeros(0, dtype=sc.dtype, device=sc.device)
-    kname = _KIND_NAME[pm.kind]
-    aname = _KIND_NAME[pm.aux_kind]
+    kernel, akernel = BY_CODE[pm.kind], BY_CODE[pm.aux_kind]
     sgp = SympGP(
-        kernel=get_kernel(kname),
-        params=sc[[0, 1, 6]] if kname == "per_se_freq" else sc[[0, 1]],
+        kernel=kernel,
+        params=sc[[0, 1, 6]] if kernel.learns_freq else sc[[0, 1]],
         sig=one, sig2n=one, X=torch.stack([pm.uq[t], pm.uP[t]], 1), z=none,
         alpha=torch.cat([pm.a0[t], pm.a1[t]]), L=none)
     aux = AuxGP(
-        kernel=get_kernel(aname), delta=pm.delta,
-        params=sc[[2, 3, 7]] if aname == "per_se_freq" else sc[[2, 3]],
+        kernel=akernel, delta=pm.delta,
+        params=sc[[2, 3, 7]] if akernel.learns_freq else sc[[2, 3]],
         sig=one, sig2n=one, X=torch.stack([pm.auxq[a], pm.auxp[a]], 1),
         z=none, alpha=pm.auxa[a], L=none)
     return sgp, aux
@@ -556,7 +554,6 @@ def _launch(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int, iters: int,
     orbit (a block's), ``cluster`` the blocks of a cluster team
     (``launch_geometry`` chooses by default).  Returns (Q, P), or (Q, P,
     D) with ``track_pdiff``."""
-    global LAUNCHES, LAUNCHES_CLUSTER, LAUNCHES_SPLIT
     dev, dtype = q0.device, q0.dtype
     with span("sympgpr::rollout.validate"):
         mode = kernel_mode(pm.kind, explicit, pm.mod_p is not None,
@@ -582,9 +579,9 @@ def _launch(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int, iters: int,
                 geo.smem_bytes, *geo.instance, geo.cluster,
                 _build.stream(dev))
         _build.check(rc, "rollout kernel")
-    LAUNCHES += 1
-    LAUNCHES_CLUSTER += geo.cluster > 1
-    LAUNCHES_SPLIT += split_instance(pm.n_maps, loss_at_new_q)
+    count("rollout")
+    count("rollout_cluster", geo.cluster > 1)
+    count("rollout_split", split_instance(pm.n_maps, loss_at_new_q))
     return (Q, P, D) if track_pdiff else (Q, P)
 
 

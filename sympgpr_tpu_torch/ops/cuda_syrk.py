@@ -10,7 +10,7 @@ It converts float32 input to float64 and multiplies and sums on the float64
 tensor cores: a float32 accumulation drove the Adam fit at N = 4096 into a
 jitter escalation (``csrc/tri_matmul.cu``).
 CPU tensors run the plain version ``W.T @ W``; CUDA tensors launch the
-kernel or raise.  ``LAUNCHES`` counts kernel launches.
+kernel or raise.
 """
 
 from __future__ import annotations
@@ -20,10 +20,9 @@ import ctypes
 import torch
 
 from sympgpr_tpu_torch.ops import _build
+from sympgpr_tpu_torch.profiling import count
 
 Tensor = torch.Tensor
-
-LAUNCHES = 0  # kernel launches made by syrk_lower in this process
 
 _ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
 
@@ -34,7 +33,6 @@ def syrk_lower_reference(W: Tensor) -> Tensor:
 
 
 def _launch(W: Tensor) -> Tensor:
-    global LAUNCHES
     if W.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"syrk kernel takes float32 or float64, not "
                         f"{W.dtype}")
@@ -47,7 +45,7 @@ def _launch(W: Tensor) -> Tensor:
     with torch.cuda.device(W.device):
         rc = fn(_build.ptr(W), _build.ptr(S), n, _build.stream(W.device))
     _build.check(rc, "syrk")
-    LAUNCHES += 1
+    count("syrk")
     return S
 
 

@@ -10,8 +10,7 @@ diagonal.  Operands may be strided views (rows contiguous, any row and
 batch stride), the result may be written into a view (``out``), and a
 ``sign`` of -1 negates it in the kernel's epilogue, so the inverse keeps
 one buffer.  CPU tensors run the plain version, ``torch.tril`` then
-``torch.matmul``; CUDA tensors launch the kernel or raise.  ``LAUNCHES``
-counts kernel launches.
+``torch.matmul``; CUDA tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -21,10 +20,9 @@ import ctypes
 import torch
 
 from sympgpr_tpu_torch.ops import _build
+from sympgpr_tpu_torch.profiling import count
 
 Tensor = torch.Tensor
-
-LAUNCHES = 0  # kernel launches made by the wrappers in this process
 
 # (pointer, row stride, batch stride) for A, B and C; nb, s, right, sign;
 # the stream
@@ -55,7 +53,6 @@ def _check(A: Tensor, B: Tensor, out: Tensor | None, sign: int) -> None:
 
 def _launch(A: Tensor, B: Tensor, C: Tensor, right: bool,
             sign: int) -> None:
-    global LAUNCHES
     if A.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"trimm kernel takes float32 or float64, not "
                         f"{A.dtype}")
@@ -75,7 +72,7 @@ def _launch(A: Tensor, B: Tensor, C: Tensor, right: bool,
     with torch.cuda.device(A.device):
         rc = fn(*args, nb, s, int(right), sign, _build.stream(A.device))
     _build.check(rc, "trimm")
-    LAUNCHES += 1
+    count("trimm")
 
 
 def _dispatch(A: Tensor, B: Tensor, right: bool, out: Tensor | None,

@@ -23,8 +23,9 @@
 * ``best_ms``: the one timer of the package, ``workloads/large_n.py`` and
   ``chip_smoke.py``: CUDA events around a call on a CUDA device, the host
   clock on the CPU, best of a few;
-* ``launch_counts``: the launch counters of the hand-written kernels'
-  wrappers, read (and optionally zeroed) in one place.
+* ``count`` and ``launch_counts``: the one registry of launch counts.
+  The wrappers of the hand-written kernels call ``count`` after each
+  launch; ``launch_counts`` reads (and optionally zeroes) them.
 """
 
 from __future__ import annotations
@@ -42,6 +43,14 @@ def _sync(device: torch.device | str | None) -> None:
     if device is not None and torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
 
+
+# the hand-written kernels: the covariance build, the contraction, the
+# syrk, the triangular matmul, the fit step's alpha product, the rollout
+KERNELS = ("cov_fwd", "cov_bwd", "syrk", "trimm", "matvec", "rollout")
+# launches of ``rollout`` that ran cluster teams, and those that ran a
+# Split instance (``ops.cuda_step.split_instance``): not kernels of their own
+SUBCOUNTS = ("rollout_cluster", "rollout_split")
+_COUNTS = dict.fromkeys(KERNELS + SUBCOUNTS, 0)
 
 _OFF = contextlib.nullcontext()
 _profiler_enabled = torch._C._autograd._profiler_enabled
@@ -92,26 +101,16 @@ def best_ms(fn: Callable[[], object], reps: int = 3, calls: int = 1,
     return best
 
 
-def launch_counts(zero: bool = False) -> dict[str, int]:
-    """Launches of each hand-written kernel in this process, by the
-    wrappers' counters: the covariance build (``cov_fwd``), the
-    contraction (``cov_bwd``), the syrk, the triangular matmul (``trimm``),
-    the fit step's alpha product (``matvec``) and the rollout, and of the
-    rollout's launches those that ran cluster teams (``rollout_cluster``)
-    and those that ran a Split instance, sub-map cycling or the loss check
-    at the new q (``rollout_split``).
-    ``zero=True`` sets them to 0 first."""
-    from sympgpr_tpu_torch.ops import cuda_cov, cuda_matvec, cuda_step, \
-        cuda_syrk, cuda_trimm
+def count(key: str, n: int = 1) -> None:
+    """Add ``n`` launches to ``key``, one of ``KERNELS + SUBCOUNTS`` (an
+    unknown key raises ``KeyError``)."""
+    _COUNTS[key] += n
 
+
+def launch_counts(zero: bool = False) -> dict[str, int]:
+    """Launches of each hand-written kernel in this process
+    (``KERNELS``), then ``SUBCOUNTS``.  ``zero=True`` sets them to 0
+    first."""
     if zero:
-        cuda_cov.LAUNCHES_FWD = cuda_cov.LAUNCHES_BWD = 0
-        cuda_syrk.LAUNCHES = cuda_trimm.LAUNCHES = cuda_step.LAUNCHES = 0
-        cuda_matvec.LAUNCHES = 0
-        cuda_step.LAUNCHES_CLUSTER = cuda_step.LAUNCHES_SPLIT = 0
-    return {"cov_fwd": cuda_cov.LAUNCHES_FWD,
-            "cov_bwd": cuda_cov.LAUNCHES_BWD, "syrk": cuda_syrk.LAUNCHES,
-            "trimm": cuda_trimm.LAUNCHES, "matvec": cuda_matvec.LAUNCHES,
-            "rollout": cuda_step.LAUNCHES,
-            "rollout_cluster": cuda_step.LAUNCHES_CLUSTER,
-            "rollout_split": cuda_step.LAUNCHES_SPLIT}
+        _COUNTS.update(dict.fromkeys(_COUNTS, 0))
+    return dict(_COUNTS)

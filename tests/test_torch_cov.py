@@ -175,8 +175,8 @@ def test_pair_terms_even_and_lower_tile_sum(name):
     gxx, gyy, ll = G[:n, :n], G[n:, n:], G[n:, :n]
 
     def terms(gxy):
-        return cuda_cov._pair_terms(cuda_cov.KINDS[name], dq, dP, lx, ly, f,
-                                    gxx, gxy, gyy)
+        return cuda_cov._pair_terms(kv.get_kernel(name).code, dq, dP, lx,
+                                    ly, f, gxx, gxy, gyy)
 
     full = terms(G[:n, n:] + ll)
     lower = terms(ll + ll.T)

@@ -62,13 +62,14 @@ def test_sharded_rollout_launches_the_kernel(mesh):
     from sympgpr_tpu_torch.distributed.sharded import \
         rollout_in_kernel_sharded
     from sympgpr_tpu_torch.ops import cuda_step, rollout_check
+    from sympgpr_tpu_torch.profiling import launch_counts
     from sympgpr_tpu_torch.workloads import large_n
 
     pm, q0, p0 = large_n.sweep_models(256, 2048, np.random.default_rng(3),
                                       "cuda")
-    cuda_step.LAUNCHES = 0
+    launch_counts(zero=True)
     got = rollout_in_kernel_sharded(mesh["dp"], pm, q0, p0, 3)
-    assert cuda_step.LAUNCHES == 1
+    assert launch_counts()["rollout"] == 1
     assert got[0].shape == (3, 2048)
     q, p = q0[:32].contiguous(), p0[:32].contiguous()
     ref = cuda_step.rollout_reference(pm, q, p, 3)

@@ -28,6 +28,7 @@ from torch_parity import ics, npy, toy_data  # noqa: E402
 from sympgpr_tpu_torch.gp.model import AuxGP, SympGP  # noqa: E402
 from sympgpr_tpu_torch.kernels import variants as kv  # noqa: E402
 from sympgpr_tpu_torch.ops import cuda_step as cs  # noqa: E402
+from sympgpr_tpu_torch.profiling import launch_counts  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -56,10 +57,10 @@ def test_kernel_float64_matches_reference(cuda, name):
     q0, p0 = (torch.tensor(x, dtype=torch.float64, device=cuda)
               for x in ics(2, b=200))
     p0 = p0.abs()
-    before = cs.LAUNCHES
+    before = launch_counts()["rollout"]
     Qk, Pk = cs.rollout_in_kernel(pm, q0, p0, 100, loss_check=True)
     torch.cuda.synchronize()
-    assert cs.LAUNCHES == before + 1
+    assert launch_counts()["rollout"] == before + 1
     Qr, Pr = cs.rollout_reference(pm, q0, p0, 100, loss_check=True)
     np.testing.assert_allclose(npy(Qk), npy(Qr), rtol=0, atol=1e-9)
     np.testing.assert_allclose(npy(Pk), npy(Pr), rtol=0, atol=1e-9)
@@ -267,17 +268,15 @@ def test_cluster_team_float32(cluster_models, cluster):
     the plain float32 error against the float64 rollout of the same
     columns (as test_kernel_forced_team_float32_large_n); the same bits
     launch after launch; each cluster launch counted."""
-    from sympgpr_tpu_torch import profiling
-
     pms, q0, p0 = cluster_models
     pm, q0, p0 = pms[torch.float32], q0.float(), p0.float()
     geo = cs.launch_geometry(30, pm.ns, pm.nas, torch.float32,
                              cluster=cluster)
     assert geo.cluster == cluster and geo.per_lane == 16 // cluster
-    before = profiling.launch_counts()
+    before = launch_counts()
     Qk, Pk = cs._launch(pm, q0, p0, 200, 5, loss_check=True,
                         cluster=cluster)
-    after = profiling.launch_counts()
+    after = launch_counts()
     assert after["rollout"] == before["rollout"] + 1
     assert after["rollout_cluster"] == before["rollout_cluster"] + (
         cluster > 1)
@@ -322,9 +321,9 @@ def test_cluster_team_float64(cluster_models):
     assert max(_diff(Qk[:100], Qr[:100]), _diff(Pk[:100], Pr[:100])) <= 1e-10
     assert max(_diff(Qk, Qr), _diff(Pk, Pr)) <= 3 * max(_diff(Q1, Qr),
                                                         _diff(P1, Pr))
-    before = cs.LAUNCHES_CLUSTER
+    before = launch_counts()["rollout_cluster"]
     Qa, Pa = cs.rollout_in_kernel(pm, q0, p0, 200, loss_check=True)
-    assert cs.LAUNCHES_CLUSTER == before + 1
+    assert launch_counts()["rollout_cluster"] == before + 1
     for a, b in ((Qa, Qk), (Pa, Pk)):  # the same bits, NaN rows too
         assert torch.equal(a.view(torch.int64), b.view(torch.int64))
 
@@ -417,15 +416,13 @@ def test_split_launches_counted(cuda, sizes, new_q, split):
     """A launch of a Split instance (sub-map cycling, or the loss check at
     the new q with one map) raises ``rollout_split`` by one; a one-map
     launch at the old q leaves it as it was."""
-    from sympgpr_tpu_torch import profiling
-
     pm = _split_models(sizes, torch.float32, cuda)
     q0, p0 = (torch.tensor(x, dtype=torch.float32, device=cuda)
               for x in ics(3, b=30))
-    before = profiling.launch_counts()
+    before = launch_counts()
     cs.rollout_in_kernel(pm, q0, p0, 10, loss_check=True,
                          loss_at_new_q=new_q)
-    after = profiling.launch_counts()
+    after = launch_counts()
     assert after["rollout"] == before["rollout"] + 1
     assert after["rollout_split"] == before["rollout_split"] + split
 
@@ -553,9 +550,9 @@ def test_new_modes_forced_team_float64(cuda, mode, team, n):
     pm, kw = _mode_models(mode, n, torch.float64, cuda)
     q0, p0 = _mode_ics(mode, torch.float64, cuda, 77)
     loss = pm.mod_p is None
-    before = cs.LAUNCHES
+    before = launch_counts()["rollout"]
     got = cs._launch(pm, q0, p0, 100, 5, loss_check=loss, team=team, **kw)
-    assert cs.LAUNCHES == before + 1
+    assert launch_counts()["rollout"] == before + 1
     ref = cs.rollout_reference(pm, q0, p0, 100, loss_check=loss, **kw)
     assert len(got) == len(ref) == (3 if kw.get("track_pdiff") else 2)
     for g, r in zip(got, ref):
@@ -738,9 +735,9 @@ def test_workload_instances_match_reference(cuda, case, n, dtype):
     pm, q0, p0, scale = _workload_models(case, n, dtype, cuda)
     assert pm.kind == pm.aux_kind and pm.delta == (pm.mod_q is None)
     nm = 100 if dtype == torch.float64 else 3
-    before = cs.LAUNCHES
+    before = launch_counts()["rollout"]
     got = cs.rollout_in_kernel(pm, q0, p0, nm)
-    assert cs.LAUNCHES == before + 1
+    assert launch_counts()["rollout"] == before + 1
     ref = cs.rollout_reference(pm, q0, p0, nm)
     atol = (1e-9 if dtype == torch.float64 else 2e-5) * scale
     for g, r in zip(got, ref):

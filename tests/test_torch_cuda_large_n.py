@@ -16,7 +16,7 @@ import math  # noqa: E402
 
 import torch  # noqa: E402
 
-from sympgpr_tpu_torch.ops import cuda_step  # noqa: E402
+from sympgpr_tpu_torch.profiling import launch_counts  # noqa: E402
 from sympgpr_tpu_torch.workloads import large_n  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -64,9 +64,9 @@ def test_sweep_instance_kernel_is_plain(cuda):
     its plain version on 32 orbits over 2 steps."""
     _, pm, q0, p0 = list(large_n.sweep_instances((512, 4096), 4096,
                                                  cuda))[-1]
-    before = cuda_step.LAUNCHES
+    before = launch_counts()["rollout"]
     res = large_n.sweep_check(pm, q0, p0, orbits=32, steps=2)
-    assert cuda_step.LAUNCHES == before + 1
+    assert launch_counts()["rollout"] == before + 1
     assert res["ok"], res
 
 
@@ -77,7 +77,7 @@ def test_deployment_rollout_kernel_is_plain(measured, cuda):
     pm, q0, p0 = large_n.deployment_instance(
         torch.tensor(measured["rollout_theta"], device=cuda), X, z,
         torch.tensor(1e-2, device=cuda))
-    before = cuda_step.LAUNCHES
+    before = launch_counts()["rollout"]
     res = large_n.sweep_check(pm, q0, p0, orbits=32, steps=2)
-    assert cuda_step.LAUNCHES == before + 1
+    assert launch_counts()["rollout"] == before + 1
     assert res["ok"], res

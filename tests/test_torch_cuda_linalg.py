@@ -42,6 +42,7 @@ from sympgpr_tpu_torch.linalg.triangular import (  # noqa: E402
     spd_inverse_from_chol, tri_inv_blocked)
 from sympgpr_tpu_torch.ops import (  # noqa: E402
     cuda_cov, cuda_matvec, cuda_syrk, cuda_trimm)
+from sympgpr_tpu_torch.profiling import launch_counts  # noqa: E402
 from sympgpr_tpu_torch.workloads.tokamak_large import (  # noqa: E402
     fit_sympgp_large)
 
@@ -77,10 +78,10 @@ def test_build_matches_plain(cuda, name, dtype):
     X, X0 = _points(300, 1, dt, cuda), _points(130, 2, dt, cuda)  # ragged
     p = torch.tensor(PARAMS[name], dtype=dt, device=cuda)
     s = torch.tensor(2.5, dtype=dt, device=cuda)
-    before = cuda_cov.LAUNCHES_FWD
+    before = launch_counts()["cov_fwd"]
     K = cuda_cov.build_K_blocks(name, X, X0, p, s)
     torch.cuda.synchronize()
-    assert cuda_cov.LAUNCHES_FWD == before + 1
+    assert launch_counts()["cov_fwd"] == before + 1
     ref = cuda_cov.build_K_blocks_reference(name, X, X0, p, s)
     assert _rel(K, ref) <= (1e-5 if dt == torch.float32 else 1e-12)
 
@@ -94,10 +95,10 @@ def test_contraction_matches_plain(cuda, name, dtype):
     s = torch.tensor(2.5, dtype=dt, device=cuda)
     Kbar = torch.tensor(np.random.default_rng(3).normal(size=(600, 260)),
                         dtype=dt, device=cuda)
-    before = cuda_cov.LAUNCHES_BWD
+    before = launch_counts()["cov_bwd"]
     dp, ds = cuda_cov.cov_param_grads(name, X, X0, p, s, Kbar)
     torch.cuda.synchronize()
-    assert cuda_cov.LAUNCHES_BWD == before + 1
+    assert launch_counts()["cov_bwd"] == before + 1
     f64 = [t.double() for t in (X, X0, p, s, Kbar)]
     dp_r, ds_r = cuda_cov.cov_param_grads_reference(name, *f64)
     got = torch.cat([dp.double(), ds.double()[None]])
@@ -122,12 +123,12 @@ def test_build_modes_ragged(cuda, name, dtype, mode, n):
     X = _points(n, 1, dt, cuda)
     p = torch.tensor(PARAMS[name], dtype=dt, device=cuda)
     s = torch.tensor(2.5, dtype=dt, device=cuda)
-    before = cuda_cov.LAUNCHES_FWD
+    before = launch_counts()["cov_fwd"]
     if mode == "general":
         X0 = _points(n // 3 + 2, 2, dt, cuda)
         K = cuda_cov.build_K_blocks(name, X, X0, p, s)
         torch.cuda.synchronize()
-        assert cuda_cov.LAUNCHES_FWD == before + 1
+        assert launch_counts()["cov_fwd"] == before + 1
         assert _rel(K, cuda_cov.build_K_blocks_reference(name, X, X0, p,
                                                          s)) <= tol
         return
@@ -135,7 +136,7 @@ def test_build_modes_ragged(cuda, name, dtype, mode, n):
     Ky = cuda_cov.build_Ky(name, X, p, s, jitter)
     Ky0 = cuda_cov.build_Ky(name, X, p, s, 0.0)
     torch.cuda.synchronize()
-    assert cuda_cov.LAUNCHES_FWD == before + 2
+    assert launch_counts()["cov_fwd"] == before + 2
     assert _rel(Ky, cuda_cov.build_Ky_reference(name, X, p, s, jitter)) <= tol
     diag = torch.eye(2 * n, dtype=torch.bool, device=cuda)
     assert torch.equal(Ky[~diag], Ky0[~diag])
@@ -156,10 +157,10 @@ def test_contraction_sym_matches_plain(cuda, name, dtype, n):
     A = rng.normal(size=(2 * n, 2 * n))
     S = torch.tensor(A + A.T, dtype=dt, device=cuda)
     alpha = torch.tensor(rng.normal(size=2 * n), dtype=dt, device=cuda)
-    before = cuda_cov.LAUNCHES_BWD
+    before = launch_counts()["cov_bwd"]
     dp, ds = cuda_cov.cov_param_grads_sym(name, X, p, s, S, alpha)
     torch.cuda.synchronize()
-    assert cuda_cov.LAUNCHES_BWD == before + 1
+    assert launch_counts()["cov_bwd"] == before + 1
     dp_r, ds_r = cuda_cov.cov_param_grads_sym_reference(
         name, *(t.double() for t in (X, p, s, S, alpha)))
     got = torch.cat([dp.double(), ds.double()[None]])
@@ -240,13 +241,13 @@ def test_trimm_matches_plain(cuda, right, dtype, s, nb, layout):
         out, buf = _view(torch.zeros_like(A), pad)
         (A, _), (poisoned, _) = _view(A, pad), _view(poisoned, pad)
         sign = -1
-    before = cuda_trimm.LAUNCHES
+    before = launch_counts()["trimm"]
     if right:
         C = cuda_trimm.matmul_tril_right(A, poisoned, out=out, sign=sign)
     else:
         C = cuda_trimm.matmul_tril_left(poisoned, A, out=out, sign=sign)
     torch.cuda.synchronize()
-    assert cuda_trimm.LAUNCHES == before + 1
+    assert launch_counts()["trimm"] == before + 1
     assert _rel(C, sign * ref) <= RTOL[dt]
     if out is not None:  # written into the view and nowhere else
         assert C is out
@@ -258,11 +259,11 @@ def test_trimm_matches_plain(cuda, right, dtype, s, nb, layout):
 def _syrk_checked(W):
     """The syrk kernel on W with NaN above its diagonal (never read); its
     error against float64 relative to max|S|, S exactly symmetric."""
-    before = cuda_syrk.LAUNCHES
+    before = launch_counts()["syrk"]
     S = cuda_syrk.syrk_lower(W + torch.triu(torch.full_like(W, float("nan")),
                                             1))
     torch.cuda.synchronize()
-    assert cuda_syrk.LAUNCHES == before + 1
+    assert launch_counts()["syrk"] == before + 1
     assert torch.equal(S, S.T)
     return _rel(S.double(), W.double().T @ W.double())
 
@@ -310,10 +311,11 @@ def test_spd_inverse_through_kernels(cuda, monkeypatch):
     A = rng.standard_normal((n, n))
     Ky = A @ A.T + n * np.eye(n)
     L = torch.tensor(np.linalg.cholesky(Ky), device=cuda)
-    before = (cuda_trimm.LAUNCHES, cuda_syrk.LAUNCHES)
+    before = launch_counts()
     W = tri_inv_blocked(L)
     Kyinv = npy(spd_inverse_from_chol(L))
-    assert cuda_trimm.LAUNCHES > before[0] and cuda_syrk.LAUNCHES > before[1]
+    after = launch_counts()
+    assert after["trimm"] > before["trimm"] and after["syrk"] > before["syrk"]
     assert torch.all(torch.triu(W, 1) == 0)
     np.testing.assert_allclose(Kyinv @ Ky, np.eye(n), atol=1e-9)
 
@@ -338,10 +340,10 @@ def _matvec_case(n, dt, device, offset=0):
 def test_matvec_matches_plain(cuda, dtype, n, offset):
     dt = DTYPES[dtype]
     S, x = _matvec_case(n, dt, cuda, offset)
-    before = cuda_matvec.LAUNCHES
+    before = launch_counts()["matvec"]
     y = cuda_matvec.matvec(S, x)
     torch.cuda.synchronize()
-    assert cuda_matvec.LAUNCHES == before + 1
+    assert launch_counts()["matvec"] == before + 1
     assert y.dtype == dt and y.shape == (n,)
     ref = S.double() @ x.double()
     err = (y.double() - ref).abs()
@@ -356,10 +358,10 @@ def test_matvec_matches_plain(cuda, dtype, n, offset):
 def test_matvec_same_bits_twice(cuda, dtype):
     """Each row is summed in one fixed order: no atomics."""
     S, x = _matvec_case(8192, DTYPES[dtype], cuda)
-    before = cuda_matvec.LAUNCHES
+    before = launch_counts()["matvec"]
     a, b = cuda_matvec.matvec(S, x), cuda_matvec.matvec(S, x)
     torch.cuda.synchronize()
-    assert cuda_matvec.LAUNCHES == before + 2
+    assert launch_counts()["matvec"] == before + 2
     assert torch.equal(a, b)
 
 
@@ -403,10 +405,10 @@ def test_nll_alpha_from_the_product(cuda, name):
     params = torch.tensor(PARAMS[name], dtype=torch.float64, device=cuda)
     sig = torch.tensor(2.5, dtype=torch.float64, device=cuda)
     s2n = torch.tensor(1e-2, dtype=torch.float64, device=cuda)
-    before = cuda_matvec.LAUNCHES
+    before = launch_counts()["matvec"]
     got = nll_value_and_grad(kernel, params, sig, s2n, X, z)
     torch.cuda.synchronize()
-    assert cuda_matvec.LAUNCHES == before + 1
+    assert launch_counts()["matvec"] == before + 1
     ref = _nll_value_and_grad_by_solve(kernel, params, sig, s2n, X, z)
     assert abs(float(got[0] - ref[0])) <= 1e-10 * abs(float(ref[0]))
     g, g_ref = (torch.cat([t[1], t[2][None]]) for t in (got, ref))
@@ -435,13 +437,13 @@ def test_fit_step_issues_no_sync(cuda, monkeypatch):
     s2n = torch.tensor(1e-2, device=cuda)
     nll_value_and_grad_theta(kv.PER_SE, theta, s2n, X, z)  # loads, handles
     torch.cuda.synchronize()
-    before = cuda_cov.LAUNCHES_BWD
+    before = launch_counts()["cov_bwd"]
     torch.cuda.set_sync_debug_mode("error")
     try:
         val, g = nll_value_and_grad_theta(kv.PER_SE, theta, s2n, X, z)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert cuda_cov.LAUNCHES_BWD == before + 1
+    assert launch_counts()["cov_bwd"] == before + 1
     assert torch.isfinite(val) and torch.isfinite(g).all()
 
 
@@ -457,9 +459,9 @@ def test_jitter_escalation_on_card(cuda, monkeypatch):
                      device=cuda)
     z = torch.tensor(rng.normal(size=2 * n) * 0.1, dtype=torch.float32,
                      device=cuda)
-    before = cuda_cov.LAUNCHES_BWD
+    before = launch_counts()["cov_bwd"]
     model, hist, mse, tim = fit_sympgp_large(
         X, z, sig2n=1e-12, theta0=(0.5, 2.5, 2.0), steps=5, lr=5e-2)
-    assert cuda_cov.LAUNCHES_BWD > before
+    assert launch_counts()["cov_bwd"] > before
     assert tim["jitter_escalations"] >= 1 and tim["sig2n_used"] > 1e-12
     assert np.isfinite(hist[-1]) and np.isfinite(mse)

@@ -30,6 +30,7 @@ from torch_parity import boundary_data, ics, toy_data  # noqa: E402
 from sympgpr_tpu_torch.gp.model import AuxGP, SympGP  # noqa: E402
 from sympgpr_tpu_torch.kernels import variants as kv  # noqa: E402
 from sympgpr_tpu_torch.ops import cuda_step as cs  # noqa: E402
+from sympgpr_tpu_torch.profiling import launch_counts  # noqa: E402
 from sympgpr_tpu_torch.ops import rollout_check as rc  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -119,10 +120,10 @@ def test_kernel_float64_one_step_from_plain_rows(cuda, name, layout, team):
     assert cs._library(pm, kw.get("loss_at_new_q", False),
                        kw.get("explicit", False),
                        True) == "rollout_split_modes"
-    before = cs.LAUNCHES
+    before = launch_counts()["rollout"]
     got = _kernel(team)(pm, q0, p0, NM, **kw)
     torch.cuda.synchronize()
-    assert cs.LAUNCHES == before + 1 and len(got) == 3
+    assert launch_counts()["rollout"] == before + 1 and len(got) == 3
     ref = cs.rollout_reference(pm, q0, p0, NM, **kw)
     for g, r in zip(got, ref):
         assert torch.equal(torch.isnan(g), torch.isnan(r))

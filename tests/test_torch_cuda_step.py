@@ -32,6 +32,7 @@ from sympgpr_tpu.ops import pallas_step as ps  # noqa: E402
 from sympgpr_tpu.systems.tokamak import TokamakConfig as JTok  # noqa: E402
 from sympgpr_tpu.workloads.tokamak import make_loss_fn as jloss  # noqa: E402
 from sympgpr_tpu_torch.ops import cuda_step as cs  # noqa: E402
+from sympgpr_tpu_torch.profiling import launch_counts  # noqa: E402
 
 PRODUCT = ["per_se", "se_se", "per_se_freq"]
 
@@ -148,10 +149,10 @@ def test_rollout_in_kernel_cpu_runs_reference():
     sgp, aux = f32_models("per_se", seed=4)
     pt = cs.pack_models(*jax_models_to_port(sgp, aux), mod_q=2 * np.pi)
     q0, p0 = ics(4)
-    before = cs.LAUNCHES
+    before = launch_counts()["rollout"]
     a = cs.rollout_in_kernel(pt, f32(q0), f32(p0), 3, loss_check=True)
     b = cs.rollout_reference(pt, f32(q0), f32(p0), 3, loss_check=True)
-    assert cs.LAUNCHES == before  # the CPU path launches no kernel
+    assert launch_counts()["rollout"] == before  # the CPU path: no kernel
     for x, y in zip(a, b):
         np.testing.assert_array_equal(npy(x), npy(y))
 

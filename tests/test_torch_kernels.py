@@ -15,6 +15,7 @@ from torch_parity import t64, npy  # noqa: E402
 
 from sympgpr_tpu.gp import covariance as jcov  # noqa: E402
 from sympgpr_tpu.kernels import variants as jvar  # noqa: E402
+from sympgpr_tpu.ops import pallas_cov  # noqa: E402
 from sympgpr_tpu.systems.halton import halton as jhalton  # noqa: E402
 from sympgpr_tpu_torch.gp import covariance as tcov  # noqa: E402
 from sympgpr_tpu_torch.kernels import variants as tvar  # noqa: E402
@@ -41,6 +42,9 @@ def test_get_kernel_registry():
     for name in NAMES:
         tk, jk = tvar.get_kernel(name), jvar.get_kernel(name)
         assert (tk.n_params, tk.separable) == (jk.n_params, jk.separable)
+        assert tk.code == pallas_cov.KINDS[name]  # the kernels' kind
+        assert tvar.BY_CODE[tk.code] is tk
+        assert tk.product == (name in pallas_cov.PRODUCT_KINDS)
     with pytest.raises(KeyError, match="unknown kernel"):
         tvar.get_kernel("nope")
 
@@ -97,3 +101,25 @@ def test_build_K_fast_matches_autodiff_build(name):
     Kf = tcov.build_K_fast(k, t64(X), t64(X), p, t64(0.8))
     Ka = tcov.build_K(k, t64(X), t64(X), p, t64(0.8))
     np.testing.assert_allclose(npy(Kf), npy(Ka), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_row_blocks_match_build_K_fast(name):
+    """The distributed build's row blocks are ``build_K_fast``'s blocks
+    (sig 1) on the rows they cover, and the autodiff Hessian blocks."""
+    from sympgpr_tpu_torch.distributed.large import _row_blocks
+
+    rng = np.random.default_rng(11)
+    n, rows = 12, slice(3, 8)
+    X = t64(_points(rng, n, 1)[0])
+    p = t64(_params(name, rng))
+    k = tvar.get_kernel(name)
+    K = tcov.build_K_fast(k, X, X, p, t64(1.0))
+    H = tcov.hess_blocks(k, X[rows], X, p)
+    for got, blk, r, c in zip(_row_blocks(k, X[rows], X, p),
+                              (K[:n, :n], K[:n, n:], K[n:, n:]),
+                              (0, 0, 1), (0, 1, 1)):
+        np.testing.assert_allclose(npy(got), npy(blk[rows]), rtol=RTOL,
+                                   atol=ATOL)
+        np.testing.assert_allclose(npy(got), npy(H[..., r, c]), rtol=RTOL,
+                                   atol=ATOL)

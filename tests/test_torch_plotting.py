@@ -95,32 +95,18 @@ def test_best_ms_on_the_host_clock():
     assert len(calls) == 2
 
 
-def test_launch_counts_read_and_zero():
-    from sympgpr_tpu_torch.ops import cuda_cov, cuda_step
-
-    cuda_step.LAUNCHES += 2
-    assert profiling.launch_counts()["rollout"] >= 2
+@pytest.mark.parametrize("key", profiling.KERNELS + profiling.SUBCOUNTS)
+def test_launch_counts_read_and_zero(key):
+    """Each key of the registry counts, reads back and zeroes; the eight
+    keys keep their order; an unknown key raises."""
+    profiling.count(key, 3)
+    assert profiling.launch_counts()[key] >= 3
     counts = profiling.launch_counts(zero=True)
-    assert counts == {"cov_fwd": 0, "cov_bwd": 0, "syrk": 0, "trimm": 0,
-                      "matvec": 0, "rollout": 0, "rollout_cluster": 0,
-                      "rollout_split": 0}
-    assert cuda_cov.LAUNCHES_FWD == 0
-
-
-def test_launch_counts_zero_the_matvec_counter():
-    from sympgpr_tpu_torch.ops import cuda_matvec
-
-    cuda_matvec.LAUNCHES += 3
-    assert profiling.launch_counts()["matvec"] >= 3
-    profiling.launch_counts(zero=True)
-    assert cuda_matvec.LAUNCHES == 0
-
-
-def test_launch_counts_zero_the_split_counter():
-    from sympgpr_tpu_torch.ops import cuda_step
-
-    cuda_step.LAUNCHES_SPLIT += 3
-    assert profiling.launch_counts()["rollout_split"] >= 3
-    profiling.launch_counts(zero=True)
-    assert cuda_step.LAUNCHES_SPLIT == 0
-    assert profiling.launch_counts()["rollout_split"] == 0
+    assert list(counts.items()) == [
+        (k, 0) for k in ("cov_fwd", "cov_bwd", "syrk", "trimm", "matvec",
+                         "rollout", "rollout_cluster", "rollout_split")]
+    profiling.count(key)
+    assert profiling.launch_counts() == dict(counts, **{key: 1})
+    with pytest.raises(KeyError):
+        profiling.count(key + "s")
+    assert profiling.launch_counts(zero=True)[key] == 0

@@ -45,6 +45,7 @@ from sympgpr_tpu_torch.gp import train as ttrain  # noqa: E402
 from sympgpr_tpu_torch.kernels import PER_SE as T_PER_SE  # noqa: E402
 from sympgpr_tpu_torch.maps import symplectic as tsm  # noqa: E402
 from sympgpr_tpu_torch.ops import cuda_step as cs  # noqa: E402
+from sympgpr_tpu_torch.profiling import launch_counts  # noqa: E402
 from sympgpr_tpu_torch.systems import tokamak as ttk  # noqa: E402
 from sympgpr_tpu_torch.workloads import tokamak as twl  # noqa: E402
 
@@ -343,10 +344,10 @@ def test_rollout_model_takes_sub_map_lists():
                            jax_models_to_port(m2, a2)))
     rng = np.random.default_rng(6)
     q0, p0 = t64(rng.uniform(0, 2 * np.pi, 40)), t64(rng.uniform(0, .5, 40))
-    before = cs.LAUNCHES
+    before = launch_counts()["rollout"]
     Qt, Pt = cs.rollout_model(st, at, q0, p0, 5, loss_check=True,
                               loss_at_new_q=True)
-    assert cs.LAUNCHES == before
+    assert launch_counts()["rollout"] == before
     assert Qt.shape == (5, 40) and Qt.dtype == torch.float32
     pm = cs.pack_models_split([s.for_deployment(1e-3) for s in st],
                               [a.for_deployment(1e-3) for a in at],

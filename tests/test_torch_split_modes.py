@@ -44,6 +44,7 @@ from sympgpr_tpu.ops import pallas_step as ps  # noqa: E402
 from sympgpr_tpu.systems.tokamak import TokamakConfig as JTok  # noqa: E402
 from sympgpr_tpu.workloads.tokamak import make_loss_fn as jloss  # noqa: E402
 from sympgpr_tpu_torch.ops import cuda_step as cs  # noqa: E402
+from sympgpr_tpu_torch.profiling import launch_counts  # noqa: E402
 
 TWO_PI = 2 * np.pi
 MOD_P_BOUNDARY = 4 * np.pi  # wraps the boundary models' P > 4 pi to [0, 1.4)
@@ -301,9 +302,9 @@ def test_rollout_entry_points_take_split_modes():
               deployment_jitter=1e-3, loss_check=True, loss_at_new_q=True)
     outj = ps.rollout_pallas(sj, aj, jnp.asarray(q0), jnp.asarray(p0), 3,
                              **kw)
-    before = cs.LAUNCHES
+    before = launch_counts()["rollout"]
     outt = cs.rollout_model(st, at, tt(q0), tt(p0), 3, **kw)
-    assert cs.LAUNCHES == before
+    assert launch_counts()["rollout"] == before
     assert len(outt) == 3 and outt[2].dtype == torch.float32
     for a, b in zip(outt, outj):
         for i in (1, 2):
