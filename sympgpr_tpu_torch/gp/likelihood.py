@@ -30,6 +30,7 @@ import torch
 
 from sympgpr_tpu_torch.gp.covariance import build_K, build_K_fast, build_Kreg
 from sympgpr_tpu_torch.kernels.variants import Kernel
+from sympgpr_tpu_torch.linalg import potrf
 from sympgpr_tpu_torch.linalg.triangular import spd_inverse_from_chol
 from sympgpr_tpu_torch.ops import cuda_cov, cuda_matvec
 from sympgpr_tpu_torch.profiling import span
@@ -188,10 +189,17 @@ def nll_value_and_grad(kernel: Kernel, params: Tensor, sig: Tensor,
     stored; elsewhere autograd of ``build_K_fast`` contracts Kbar.
     ``sig2n`` is fixed.
 
+    Ky is a buffer of this step's own, read by nothing after its factor,
+    so on a CUDA device the factor is written over it
+    (``linalg/potrf.py::cholesky_in_place``: cuSOLVER's potrf with no copy
+    in and no mask).  The strict upper triangle of that L still holds Ky's
+    entries; the step reads L's lower triangle only (the inverse's base
+    solves and products, the diagonal for the log-determinant).
+
     A failed factorization gives NaN in value and gradient, as in the JAX
-    package: ``cholesky_ex`` reports it through ``info`` and leaves a
-    finite partial factor, so a NaN scalar is added to the three results
-    on the device, with no host sync.
+    package: the factor reports it through ``info`` on the device and
+    leaves a finite partial factor, so a NaN scalar is added to the three
+    results on the device, with no host sync.
     """
     fused = cuda_cov.want_cuda_build(kernel, X)
     with span("sympgpr::nll.build"):
@@ -206,7 +214,7 @@ def nll_value_and_grad(kernel: Kernel, params: Tensor, sig: Tensor,
             K = K_graph.detach()
             Ky = K + torch.abs(sig2n) * _eye(K.shape[0], K)
     with span("sympgpr::nll.factor"):
-        L, info = torch.linalg.cholesky_ex(Ky)
+        L, info = potrf.cholesky_in_place(Ky)
         poison = torch.where(info == 0, 0.0, math.nan).to(Ky.dtype)
     S = spd_inverse_from_chol(L)
     with span("sympgpr::nll.alpha"):

@@ -56,6 +56,12 @@ def tri_inv_blocked(L: Tensor) -> Tensor:
     level reads its diagonal blocks Wa, Wc and L's subdiagonal blocks B as
     strided views, and the second product writes -Wc (B Wa) straight into
     W's subdiagonal blocks.
+
+    Only L's lower triangle is read: the base solves take the lower
+    triangle of L's diagonal blocks, and the products read blocks strictly
+    below L's diagonal.  Whatever L holds above its diagonal (Ky's entries,
+    after ``linalg/potrf.py::cholesky_in_place``) leaves W's bits as they
+    are.
     """
     n_in = L.shape[0]
     base = min(BASE, max(8, 1 << (n_in - 1).bit_length()))
@@ -83,7 +89,8 @@ def tri_inv_blocked(L: Tensor) -> Tensor:
 
 
 def spd_inverse_from_chol(L: Tensor) -> Tensor:
-    """Ky^{-1} from its lower Cholesky factor: W = L^{-1}, then W^T W."""
+    """Ky^{-1} from its lower Cholesky factor: W = L^{-1}, then W^T W.
+    L's strict upper triangle is never read (``tri_inv_blocked``)."""
     with span("sympgpr::linalg.tri_inv"):
         W = tri_inv_blocked(L).contiguous()
     with span("sympgpr::linalg.syrk"):

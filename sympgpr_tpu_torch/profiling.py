@@ -25,7 +25,8 @@
   clock on the CPU, best of a few;
 * ``count`` and ``launch_counts``: the one registry of launch counts.
   The wrappers of the hand-written kernels call ``count`` after each
-  launch; ``launch_counts`` reads (and optionally zeroes) them.
+  launch, and ``linalg/potrf.py`` after each factorization it writes over
+  its input; ``launch_counts`` reads (and optionally zeroes) them.
 """
 
 from __future__ import annotations
@@ -50,7 +51,10 @@ KERNELS = ("cov_fwd", "cov_bwd", "syrk", "trimm", "matvec", "rollout")
 # launches of ``rollout`` that ran cluster teams, and those that ran a
 # Split instance (``ops.cuda_step.split_instance``): not kernels of their own
 SUBCOUNTS = ("rollout_cluster", "rollout_split")
-_COUNTS = dict.fromkeys(KERNELS + SUBCOUNTS, 0)
+# calls into a library that are not hand-written kernels: cuSOLVER's
+# Cholesky written over its input (``linalg.potrf.cholesky_in_place``)
+LIBRARY = ("factor_in_place",)
+_COUNTS = dict.fromkeys(KERNELS + SUBCOUNTS + LIBRARY, 0)
 
 _OFF = contextlib.nullcontext()
 _profiler_enabled = torch._C._autograd._profiler_enabled
@@ -102,15 +106,15 @@ def best_ms(fn: Callable[[], object], reps: int = 3, calls: int = 1,
 
 
 def count(key: str, n: int = 1) -> None:
-    """Add ``n`` launches to ``key``, one of ``KERNELS + SUBCOUNTS`` (an
-    unknown key raises ``KeyError``)."""
+    """Add ``n`` launches to ``key``, one of ``KERNELS + SUBCOUNTS +
+    LIBRARY`` (an unknown key raises ``KeyError``)."""
     _COUNTS[key] += n
 
 
 def launch_counts(zero: bool = False) -> dict[str, int]:
     """Launches of each hand-written kernel in this process
-    (``KERNELS``), then ``SUBCOUNTS``.  ``zero=True`` sets them to 0
-    first."""
+    (``KERNELS``), then ``SUBCOUNTS``, then ``LIBRARY``.  ``zero=True``
+    sets them to 0 first."""
     if zero:
         _COUNTS.update(dict.fromkeys(_COUNTS, 0))
     return dict(_COUNTS)

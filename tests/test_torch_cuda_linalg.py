@@ -3,8 +3,10 @@ PyTorch versions, on the card: covariance build and contraction
 (``ops/cuda_cov.py``, with the fit's fused entries ``build_Ky`` and
 ``cov_param_grads_sym``), triangular matmul (``ops/cuda_trimm.py``), syrk
 (``ops/cuda_syrk.py``), the alpha product (``ops/cuda_matvec.py``) and the
-fit step's alpha and value from it, the jitter escalation of the fit
-through them, and a fit step that never makes the host wait for the card.
+fit step's alpha and value from it, the Cholesky written over Ky
+(``linalg/potrf.py``) against ``cholesky_ex``'s, the jitter escalation of
+the fit through them, and a fit step that never makes the host wait for
+the card.
 
 Needs a CUDA device and nvcc; skips otherwise.  Needs no JAX:
 
@@ -36,8 +38,10 @@ from torch_parity import npy  # noqa: E402
 from sympgpr_tpu_torch.gp.covariance import build_K_fast  # noqa: E402
 from sympgpr_tpu_torch.gp.likelihood import (  # noqa: E402
     nll_value_and_grad, nll_value_and_grad_theta)
+from sympgpr_tpu_torch.gp import train  # noqa: E402
 from sympgpr_tpu_torch.kernels import variants as kv  # noqa: E402
 from sympgpr_tpu_torch.linalg import triangular  # noqa: E402
+from sympgpr_tpu_torch.linalg.potrf import cholesky_in_place  # noqa: E402
 from sympgpr_tpu_torch.linalg.triangular import (  # noqa: E402
     spd_inverse_from_chol, tri_inv_blocked)
 from sympgpr_tpu_torch.ops import (  # noqa: E402
@@ -414,6 +418,86 @@ def test_nll_alpha_from_the_product(cuda, name):
     g, g_ref = (torch.cat([t[1], t[2][None]]) for t in (got, ref))
     assert float((g - g_ref).abs().max()) <= 1e-10 * float(
         g_ref.abs().max()), (g, g_ref)
+
+
+def _spd(n, dt, device):
+    """A random SPD (n, n) matrix, symmetric to the bit."""
+    g = torch.Generator(device=device).manual_seed(n)
+    A = torch.randn(n, n, generator=g, dtype=dt, device=device)
+    Ky = A @ A.T / n + torch.eye(n, dtype=dt, device=device)
+    return 0.5 * (Ky + Ky.T)
+
+
+@pytest.mark.parametrize("n", [48, 1000, 8192])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_factor_in_place_matches_cholesky_ex(cuda, dtype, n):
+    """The factor lands in Ky's own buffer, L = Ky.mT (the layout of
+    ``cholesky_ex``'s L), its lower triangle within 1e-6 (float32) or
+    1e-14 (float64) of ``cholesky_ex``'s over the factor's largest entry,
+    its strict upper triangle Ky's entries untouched, counted once."""
+    dt = DTYPES[dtype]
+    Ky = _spd(n, dt, cuda)
+    L_ref, info_ref = torch.linalg.cholesky_ex(Ky)
+    buf = Ky.clone()
+    before = launch_counts()["factor_in_place"]
+    L, info = cholesky_in_place(buf)
+    torch.cuda.synchronize()
+    assert launch_counts()["factor_in_place"] == before + 1
+    assert L.data_ptr() == buf.data_ptr() and L.stride() == (1, n)
+    assert int(info) == int(info_ref) == 0
+    low = torch.tril(L)
+    gap = float((low - L_ref).abs().max() / L_ref.abs().max())
+    tol = 1e-6 if dt == torch.float32 else 1e-14
+    assert gap <= tol, (f"largest gap {gap:.3e} over max|L|, bits equal: "
+                        f"{torch.equal(low, L_ref)}")
+    assert torch.equal(torch.triu(L, 1), torch.triu(Ky, 1))
+
+
+def test_factor_in_place_indefinite(cuda, monkeypatch):
+    """info > 0 on an indefinite Ky, as ``cholesky_ex`` reports it, and
+    NaN in the fit step's value and gradient where its build gives an
+    indefinite Ky (a negated covariance), with the factor counted."""
+    Ky = torch.eye(64, device=cuda)
+    Ky[40, 40] = -1.0
+    assert int(cholesky_in_place(Ky.clone())[1]) == 41
+    assert int(torch.linalg.cholesky_ex(Ky)[1]) == 41
+    monkeypatch.setattr(cuda_cov, "NLL_THRESHOLD", 1)
+    build = cuda_cov.build_Ky
+    monkeypatch.setattr(cuda_cov, "build_Ky", lambda *a: -build(*a))
+    X = _points(32, 4, torch.float32, cuda)
+    z = torch.tensor(np.random.default_rng(2).normal(size=64) * 0.1,
+                     dtype=torch.float32, device=cuda)
+    params = torch.tensor(PARAMS["per_se"], device=cuda)
+    before = launch_counts()["factor_in_place"]
+    val, dparams, dsig = nll_value_and_grad(
+        kv.PER_SE, params, torch.tensor(2.5, device=cuda),
+        torch.tensor(1e-2, device=cuda), X, z)
+    assert launch_counts()["factor_in_place"] == before + 1
+    assert torch.isnan(val) and torch.isnan(dparams).all() \
+        and torch.isnan(dsig)
+
+
+def test_factor_in_place_once_a_step(cuda, monkeypatch):
+    """The Adam loop factors Ky in place once a step, and the fit's
+    finish (which reads Ky after its factor) does not."""
+    monkeypatch.setattr(cuda_cov, "NLL_THRESHOLD", 1)
+    X = _points(64, 3, torch.float32, cuda)
+    z = torch.tensor(np.random.default_rng(1).normal(size=128) * 0.1,
+                     dtype=torch.float32, device=cuda)
+    theta0 = torch.log10(torch.tensor([0.9, 1.7, 2.0], device=cuda))
+    s2n = torch.tensor(1e-2, device=cuda)
+    before = launch_counts()
+    theta, hist = train._adam(kv.PER_SE, X, z, theta0, s2n, 7, 5e-2)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert after["factor_in_place"] == before["factor_in_place"] + 7
+    assert after["cov_bwd"] == before["cov_bwd"] + 7
+    assert torch.isfinite(hist).all()
+    before = after["factor_in_place"]
+    tim = fit_sympgp_large(X, z, sig2n=1e-2, theta0=(0.5, 2.5, 2.0),
+                           steps=3, lr=5e-2)[3]
+    assert launch_counts()["factor_in_place"] == before + 3 * (
+        1 + tim["jitter_escalations"])
 
 
 def test_wrappers_refuse_mixed_devices(cuda):

@@ -95,16 +95,18 @@ def test_best_ms_on_the_host_clock():
     assert len(calls) == 2
 
 
-@pytest.mark.parametrize("key", profiling.KERNELS + profiling.SUBCOUNTS)
+@pytest.mark.parametrize("key", profiling.KERNELS + profiling.SUBCOUNTS
+                         + profiling.LIBRARY)
 def test_launch_counts_read_and_zero(key):
-    """Each key of the registry counts, reads back and zeroes; the eight
+    """Each key of the registry counts, reads back and zeroes; the nine
     keys keep their order; an unknown key raises."""
     profiling.count(key, 3)
     assert profiling.launch_counts()[key] >= 3
     counts = profiling.launch_counts(zero=True)
     assert list(counts.items()) == [
         (k, 0) for k in ("cov_fwd", "cov_bwd", "syrk", "trimm", "matvec",
-                         "rollout", "rollout_cluster", "rollout_split")]
+                         "rollout", "rollout_cluster", "rollout_split",
+                         "factor_in_place")]
     profiling.count(key)
     assert profiling.launch_counts() == dict(counts, **{key: 1})
     with pytest.raises(KeyError):

@@ -1,7 +1,9 @@
 """PyTorch port vs JAX: the triangular products and the blocked inverse
 (``ops/cuda_trimm.py``, ``ops/cuda_syrk.py``, ``linalg/triangular.py``);
 and the alpha product ``ops/cuda_matvec.py``, which JAX lacks, against
-``torch.cholesky_solve``.
+``torch.cholesky_solve``.  The blocked inverse ignores its factor's upper
+triangle, and ``linalg/potrf.py``'s factor is ``cholesky_ex``'s off the
+card.
 
 JAX runs its Pallas kernels in interpret mode on the CPU with the calls of
 ``tests/test_fast_grad.py`` (tile 128, ``precision="highest"``); the port
@@ -23,7 +25,7 @@ from sympgpr_tpu.linalg import triangular as jtri  # noqa: E402
 from sympgpr_tpu.ops.pallas_syrk import syrk_lower as jsyrk  # noqa: E402
 from sympgpr_tpu.ops.pallas_trimm import (  # noqa: E402
     matmul_tril_left as jleft, matmul_tril_right as jright)
-from sympgpr_tpu_torch.linalg import triangular  # noqa: E402
+from sympgpr_tpu_torch.linalg import potrf, triangular  # noqa: E402
 from sympgpr_tpu_torch.linalg.triangular import (  # noqa: E402
     spd_inverse_from_chol, tri_inv_blocked)
 from sympgpr_tpu_torch.ops import (  # noqa: E402
@@ -247,6 +249,52 @@ def test_spd_inverse_from_chol_default_base():
     np.testing.assert_allclose(Kyinv @ Ky, np.eye(n), atol=1e-9)
     Kyinv_j = np.asarray(jtri.spd_inverse_from_chol(jnp.asarray(L)))
     np.testing.assert_allclose(Kyinv, Kyinv_j, atol=1e-10)
+
+
+# n = 1024 is taken as it is; n = 700 is padded to 1024 by ``_pad_tri``'s
+# identity tail.  Row-major L as a factor written over Ky in place would
+# be, column-major as ``cholesky_ex`` and ``linalg/potrf.py`` return it.
+@pytest.mark.parametrize("layout", ["row", "col"])
+@pytest.mark.parametrize("fill", ["large", "nan"])
+@pytest.mark.parametrize("n", [1024, 700])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_inverse_ignores_upper_triangle(dtype, n, fill, layout,
+                                        monkeypatch):
+    """``tri_inv_blocked`` and ``spd_inverse_from_chol`` read L's lower
+    triangle only, the invariant the fit's factor written over Ky relies
+    on (its strict upper triangle keeps Ky's entries): with that triangle
+    filled with 1e30 or NaN, W and S are bit-equal to those of tril(L).
+    Base 128, so the products run three or more combine levels."""
+    monkeypatch.setattr(triangular, "BASE", 128)
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(n)
+    A = rng.standard_normal((n, n))
+    L = torch.tensor(np.linalg.cholesky(A @ A.T / n + np.eye(n)), dtype=dt)
+    dirty = L.clone()
+    dirty[torch.triu(torch.ones(n, n, dtype=torch.bool), 1)] = (
+        1e30 if fill == "large" else float("nan"))
+    if layout == "col":
+        L, dirty = L.T.contiguous().T, dirty.T.contiguous().T
+    assert torch.equal(tri_inv_blocked(dirty), tri_inv_blocked(L))
+    assert torch.equal(spd_inverse_from_chol(dirty), spd_inverse_from_chol(L))
+
+
+def test_cholesky_in_place_on_cpu_is_cholesky_ex():
+    """Off the card the factor is ``torch.linalg.cholesky_ex``'s: a new
+    buffer, Ky as it was, nothing counted; an indefinite Ky reports the
+    order of its first failing minor in ``info`` as there."""
+    rng = np.random.default_rng(3)
+    A = rng.standard_normal((40, 40))
+    Ky = tt(A @ A.T + 40 * np.eye(40))
+    before = launch_counts()["factor_in_place"]
+    L, info = potrf.cholesky_in_place(Ky.clone())
+    L_ref, info_ref = torch.linalg.cholesky_ex(Ky)
+    assert torch.equal(L, L_ref) and int(info) == int(info_ref) == 0
+    Ky[20, 20] = -1.0
+    kept = Ky.clone()
+    assert int(potrf.cholesky_in_place(Ky)[1]) == 21
+    assert torch.equal(Ky, kept)
+    assert launch_counts()["factor_in_place"] == before
 
 
 def test_wrappers_refuse_other_devices():

@@ -40,6 +40,19 @@ for it, so the covariance kernels are also timed over 20 calls back to
 back (``*_b2b_ms``) and by the profiler's device time of their kernels
 (``*_kernel_ms``).
 
+Where the checkout factors Ky in place (``linalg/potrf.py``), its step
+runs that factor (``cholesky_in_place``) and ``potrf_modes`` times
+cuSOLVER's potrf alone at n in three layouts, each call on a fresh copy
+of Ky restored outside the CUDA events: the upper fill mode in place on
+the row-major Ky (``upper_in_place``: the factor lands row-major), the
+lower fill mode in place on it (``lower_in_place``, the checkout's
+factor: L lands column-major) and the lower fill mode on a column-major
+copy (``lower_col_major``, what ``cholesky_ex`` runs between its copy in
+and its mask), beside ``cholesky_ex`` whole; with each factor's largest
+gap to ``cholesky_ex``'s over its largest entry, whether the bits are
+equal, and whether Ky is symmetric to the bit (``Ky_symmetric``: then
+the lower fill mode reads the same numbers in either layout).
+
 The first fit of a process is timed apart, on the host clock with a
 synchronisation after each part: right after the data, each part of the
 checkout's fit step is called once cold and once warm (``first_s`` and
@@ -184,6 +197,8 @@ def _step_parts(X, z, params, sig, s2n) -> dict:
     fused = hasattr(cuda_cov, "build_Ky")
     # alpha = S z after the syrk where the checkout has the product kernel
     matvec = _matvec_module(ops)
+    # the factor written over Ky where the checkout has it
+    potrf = _module("sympgpr_tpu_torch.linalg.potrf")
     parts = {}
     if fused:
         parts["build_Ky"] = lambda: st.update(Ky=cuda_cov.build_Ky(
@@ -193,8 +208,12 @@ def _step_parts(X, z, params, sig, s2n) -> dict:
             "per_se", X, X, params, sig))
         parts["eye_add"] = lambda: st.update(Ky=st["K"] + s2n * torch.eye(
             n, dtype=X.dtype, device=X.device))
-    parts["cholesky"] = lambda: st.update(zip(
-        ("L", "info"), torch.linalg.cholesky_ex(st["Ky"])))
+    if potrf is None:
+        parts["cholesky"] = lambda: st.update(zip(
+            ("L", "info"), torch.linalg.cholesky_ex(st["Ky"])))
+    else:
+        parts["cholesky_in_place"] = lambda: st.update(zip(
+            ("L", "info"), potrf.cholesky_in_place(st["Ky"])))
     if not fused:
         parts["where_L"] = lambda: st.update(L=torch.where(
             st["info"] == 0, st["L"], math.nan))
@@ -224,12 +243,72 @@ def _step_parts(X, z, params, sig, s2n) -> dict:
 
 def _matvec_module(ops):
     """The checkout's ``ops.cuda_matvec``, or None where it has none."""
+    return _module(ops.__name__ + ".cuda_matvec")
+
+
+def _module(name: str):
+    """The checkout's module ``name``, or None where it has none."""
     import importlib
 
     try:
-        return importlib.import_module(ops.__name__ + ".cuda_matvec")
+        return importlib.import_module(name)
     except ModuleNotFoundError:
         return None
+
+
+def _potrf_modes(potrf, Ky, reps: int) -> dict:
+    """cuSOLVER's potrf alone, upper and lower in place and lower on a
+    column-major copy, beside ``cholesky_ex`` whole (see the module
+    doc)."""
+    import ctypes
+
+    import torch
+
+    dev, n = Ky.device, Ky.shape[0]
+    L_ref, _ = torch.linalg.cholesky_ex(Ky)
+    potrf.cholesky_in_place(Ky.clone())  # the handle and the workspace
+    solver, dt = potrf._SOLVER, potrf._DATA_TYPE[Ky.dtype]
+    handle, params = solver.handle(torch.cuda.current_device())
+    solver.SetStream(handle, torch.cuda.current_stream(dev).cuda_stream)
+    info = torch.empty((), dtype=torch.int32, device=dev)
+    out = {"cholesky_ex_ms": _time(lambda: torch.linalg.cholesky_ex(Ky),
+                                   reps),
+           "Ky_symmetric": bool(torch.equal(Ky, Ky.T))}
+    col_major = torch.empty_strided((n, n), (1, n), dtype=Ky.dtype,
+                                    device=dev)
+    # (name, the buffer, the fill mode, the view whose lower triangle is L)
+    for name, buf, fill, view in (
+            ("upper_in_place", torch.empty_like(Ky), 1, lambda b: b),
+            ("lower_in_place", torch.empty_like(Ky), 0, lambda b: b.mT),
+            ("lower_col_major", col_major, 0, lambda b: b)):
+        dev_b, host_b = ctypes.c_size_t(), ctypes.c_size_t()
+        potrf._check(solver.Xpotrf_bufferSize(
+            handle, params, fill, n, dt, buf.data_ptr(), n, dt,
+            ctypes.byref(dev_b), ctypes.byref(host_b)), "bufferSize")
+        work = torch.empty(max(dev_b.value, 1), dtype=torch.uint8,
+                           device=dev)
+        host = (ctypes.create_string_buffer(host_b.value) if host_b.value
+                else None)
+        ts = []
+        for _ in range(reps + 1):  # the first is the warm-up
+            buf.copy_(Ky)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            potrf._check(solver.Xpotrf(
+                handle, params, fill, n, dt, buf.data_ptr(), n, dt,
+                work.data_ptr(), dev_b.value, host, host_b.value,
+                info.data_ptr()), "potrf")
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b))
+        L = torch.tril(view(buf))
+        out[name + "_ms"] = (min(ts[1:]), statistics.median(ts[1:]))
+        out[name + "_info"] = int(info)
+        out[name + "_gap"] = float((L - L_ref).abs().max()
+                                   / L_ref.abs().max())
+        out[name + "_bits_equal"] = bool(torch.equal(L, L_ref))
+    return out
 
 
 def _host_s(fn) -> float:
@@ -295,7 +374,13 @@ def run_one(tree: str, reps: int) -> None:
     K = cuda_cov.build_K_blocks("per_se", X, X, params, sig)
     n = K.shape[0]
     Ky = K + SIG2N * torch.eye(n, dtype=K.dtype, device=dev)
-    L, info = torch.linalg.cholesky_ex(Ky)
+    # the checkout's own factor, whose layout tri_inv takes
+    potrf = _module("sympgpr_tpu_torch.linalg.potrf")
+    if potrf is None:
+        L, info = torch.linalg.cholesky_ex(Ky)
+    else:
+        L, info = potrf.cholesky_in_place(Ky.clone())
+        L = L.tril_()
     assert int(info) == 0, "Cholesky failed"
     alpha = torch.cholesky_solve(z[:, None], L)[:, 0]
     W = triangular.tri_inv_blocked(L).contiguous()
@@ -354,6 +439,10 @@ def run_one(tree: str, reps: int) -> None:
             "per_se", X, params, sig, S, alpha)
     for name, fn in timed.items():
         row[name + "_ms"], row[name + "_median_ms"] = _time(fn, reps)
+    if potrf is not None:
+        row["potrf_modes"] = _potrf_modes(potrf, Ky, reps)
+        (row["cholesky_in_place_ms"], row["cholesky_in_place_median_ms"]) \
+            = row["potrf_modes"]["lower_in_place_ms"]
     row["step_path"] = list(parts)
     row["unexplained_ms"] = row["fit_step_ms"] - sum(
         row[k + "_ms"] for k in parts)

@@ -15,7 +15,10 @@ the path for another implementation, to find the stage that sets the
 error: ``kernels`` (the path as it runs), ``plain_build`` (the build's
 plain version on the card's tensors in place of the build kernel; the
 contraction kernels stay) and ``cpu_cholesky`` (the float32 Cholesky
-factorizations by LAPACK on the host in place of cuSOLVER).  An error
+factorizations by LAPACK on the host in place of cuSOLVER: the closed-form
+step's factor written back into Ky's buffer as
+``linalg/potrf.py::cholesky_in_place`` leaves it, the autodiff path's
+``torch.linalg.cholesky_ex``).  An error
 that grows as sig2n shrinks (K's condition number grows as 1 / sig2n) is
 rounding amplified by the conditioning.  ``--build-error`` adds one line
 per sig2n with the float32 Ky of the build kernel and of the plain
@@ -39,6 +42,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from sympgpr_tpu_torch.kernels import PER_SE  # noqa: E402
+from sympgpr_tpu_torch.linalg import potrf  # noqa: E402
 from sympgpr_tpu_torch.ops import cuda_cov  # noqa: E402
 from sympgpr_tpu_torch.workloads import large_n  # noqa: E402
 
@@ -52,26 +56,39 @@ def _cholesky_on_host(A, *args, **kw):
     return L.to(A.device), info.to(A.device)
 
 
+def _cholesky_in_place_on_host(Ky):
+    """``potrf.cholesky_in_place`` of a float32 card tensor by LAPACK on
+    the host: the factor written back into Ky's buffer, returned as the
+    view ``Ky.mT`` whose lower triangle is L, as the card's leaves it."""
+    if Ky.dtype != torch.float32 or Ky.device.type == "cpu":
+        return _CHOLESKY_IN_PLACE(Ky)
+    L, info = _CHOLESKY_EX(Ky.cpu())
+    Ky.mT.copy_(L)
+    return Ky.mT, info.to(Ky.device)
+
+
 _CHOLESKY_EX = torch.linalg.cholesky_ex
+_CHOLESKY_IN_PLACE = potrf.cholesky_in_place
 
 
 @contextlib.contextmanager
 def variant(name: str):
     """The float32 path with one stage swapped (see the module doc)."""
     saved = (cuda_cov.build_Ky, cuda_cov.build_K_blocks,
-             torch.linalg.cholesky_ex)
+             torch.linalg.cholesky_ex, potrf.cholesky_in_place)
     if name == "plain_build":
         cuda_cov.build_Ky = cuda_cov.build_Ky_reference
         cuda_cov.build_K_blocks = cuda_cov.build_K_blocks_reference
     elif name == "cpu_cholesky":
         torch.linalg.cholesky_ex = _cholesky_on_host
+        potrf.cholesky_in_place = _cholesky_in_place_on_host
     elif name != "kernels":
         raise ValueError(f"unknown variant {name!r}")
     try:
         yield
     finally:
         (cuda_cov.build_Ky, cuda_cov.build_K_blocks,
-         torch.linalg.cholesky_ex) = saved
+         torch.linalg.cholesky_ex, potrf.cholesky_in_place) = saved
 
 
 def build_error(N: int, sig2n: float, device) -> dict:
