@@ -582,6 +582,7 @@ def _launch(pm: PackedModels, q0: Tensor, p0: Tensor, nm: int, iters: int,
     count("rollout")
     count("rollout_cluster", geo.cluster > 1)
     count("rollout_split", split_instance(pm.n_maps, loss_at_new_q))
+    count("rollout_wrap", mode == "implicit_wrap")
     return (Q, P, D) if track_pdiff else (Q, P)
 
 

@@ -48,9 +48,11 @@ def _sync(device: torch.device | str | None) -> None:
 # the hand-written kernels: the covariance build, the contraction, the
 # syrk, the triangular matmul, the fit step's alpha product, the rollout
 KERNELS = ("cov_fwd", "cov_bwd", "syrk", "trimm", "matvec", "rollout")
-# launches of ``rollout`` that ran cluster teams, and those that ran a
-# Split instance (``ops.cuda_step.split_instance``): not kernels of their own
-SUBCOUNTS = ("rollout_cluster", "rollout_split")
+# launches of ``rollout`` that ran cluster teams, those that ran a Split
+# instance (``ops.cuda_step.split_instance``) and those in the mod_p / pdiff
+# mode (``ops.cuda_step.kernel_mode`` "implicit_wrap"): not kernels of
+# their own
+SUBCOUNTS = ("rollout_cluster", "rollout_split", "rollout_wrap")
 # calls into a library that are not hand-written kernels: cuSOLVER's
 # Cholesky written over its input (``linalg.potrf.cholesky_in_place``)
 LIBRARY = ("factor_in_place",)

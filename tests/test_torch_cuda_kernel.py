@@ -427,6 +427,51 @@ def test_split_launches_counted(cuda, sizes, new_q, split):
     assert after["rollout_split"] == before["rollout_split"] + split
 
 
+def _stdmap_models(device):
+    """The standard map's implicit models at k = 2 on its 20 Halton pairs
+    (the port's float64 fits' hyperparameters)."""
+    from sympgpr_tpu_torch.systems import standard_map as sm
+
+    d = sm.training_data(sm.StandardMapConfig(), device)
+    sgp = SympGP.create(kv.PER_SE, [10.77, 5.295], 80.66, 1e-12, d["X"],
+                        d["z"])
+    aux = AuxGP.create(kv.PER_SE, [0.1, 0.1], 8.0, 1e-12, d["Xp"], d["zp"],
+                       delta=True)
+    return sgp.for_deployment(1e-5), aux.for_deployment(1e-5)
+
+
+@pytest.mark.parametrize("case,wrap", [
+    ("tokamak", 0), ("split", 0), ("stdmap_mod_p", 1), ("stdmap_pdiff", 1),
+    ("stdmap_both", 1)])
+def test_wrap_launches_counted(cuda, case, wrap):
+    """A launch in the mod_p / pdiff mode (``kernel_mode`` "implicit_wrap":
+    the standard map with the wrap of P, with pdiff, or both) raises
+    ``rollout_wrap`` by one; a tokamak launch and a Split launch leave it
+    as it was."""
+    two_pi = 2 * math.pi
+    kw = {}
+    if case == "tokamak":
+        pm = cs.pack_models(*_models("per_se", cuda), mod_q=two_pi)
+    elif case == "split":
+        pm = _split_models((40, 24, 33, 17), torch.float32, cuda)
+        kw = dict(loss_at_new_q=True)
+    else:
+        pm = cs.pack_models(*_stdmap_models(cuda), mod_q=two_pi,
+                            mod_p=None if case == "stdmap_pdiff" else two_pi)
+        kw = dict(track_pdiff=case != "stdmap_mod_p")
+    q0, p0 = (torch.tensor(x, dtype=torch.float32, device=cuda)
+              for x in ics(3, b=30))
+    p0 = p0.abs()
+    before = launch_counts()
+    out = cs.rollout_in_kernel(pm, q0, p0, 10, **kw)
+    after = launch_counts()
+    assert len(out) == (3 if kw.get("track_pdiff") else 2)
+    assert after["rollout"] == before["rollout"] + 1
+    assert after["rollout_wrap"] == before["rollout_wrap"] + wrap
+    assert after["rollout_split"] == before["rollout_split"] + (
+        case == "split")
+
+
 def _boundary_models(device):
     """Two sub-maps near the tokamak's loss boundary (P in [10, 14]: r =
     0.5 at cos q = 0.12 for P = 12) that turn q by ~1 and ~0.5 a step."""

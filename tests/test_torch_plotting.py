@@ -98,7 +98,7 @@ def test_best_ms_on_the_host_clock():
 @pytest.mark.parametrize("key", profiling.KERNELS + profiling.SUBCOUNTS
                          + profiling.LIBRARY)
 def test_launch_counts_read_and_zero(key):
-    """Each key of the registry counts, reads back and zeroes; the nine
+    """Each key of the registry counts, reads back and zeroes; the ten
     keys keep their order; an unknown key raises."""
     profiling.count(key, 3)
     assert profiling.launch_counts()[key] >= 3
@@ -106,7 +106,7 @@ def test_launch_counts_read_and_zero(key):
     assert list(counts.items()) == [
         (k, 0) for k in ("cov_fwd", "cov_bwd", "syrk", "trimm", "matvec",
                          "rollout", "rollout_cluster", "rollout_split",
-                         "factor_in_place")]
+                         "rollout_wrap", "factor_in_place")]
     profiling.count(key)
     assert profiling.launch_counts() == dict(counts, **{key: 1})
     with pytest.raises(KeyError):
