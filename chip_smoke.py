@@ -768,6 +768,11 @@ RTOL_TRIMM_F32 = 1e-4
 # the alpha product: float32 input summed in float64 and rounded once, as
 # its plain version, so the two differ by at most one float32 rounding
 RTOL_MATVEC_F32 = 1e-6
+# the Cholesky written over Ky: float64 sums as its plain version, each
+# rounding its stored blocks to float32 once an update, so on a
+# well-conditioned SPD matrix (eigenvalues in [1, 5]) the two lie a few
+# float32 roundings of the factor's largest entry apart
+RTOL_POTRF_F32 = 1e-6
 RTOL_F64 = 1e-12  # float64 instances, same formulas in another order
 # the covariance kernels (~0.1 ms) and the passes they replaced are timed
 # over this many calls back to back
@@ -783,6 +788,8 @@ LARGE_SOURCES = {
               "sympgpr_tpu/ops/pallas_trimm.py:40"),   # def _trimm_tile
     # no TPU counterpart: the JAX package solves for alpha
     "matvec": ("sympgpr_tpu_torch/csrc/tri_matmul.cu", None),
+    # no TPU counterpart: the JAX package factors with jnp.linalg.cholesky
+    "potrf": ("sympgpr_tpu_torch/csrc/tri_matmul.cu", None),
 }
 
 
@@ -1087,12 +1094,12 @@ def _trimm_check(side, A, B, sign) -> tuple[float, float]:
 
 
 def phase_large_kernels_vs_plain(dev, sgp):
-    """The five kernels of the fit step against their plain versions at
+    """The six kernels of the fit step against their plain versions at
     the main path's shapes (N=4096 float32: K and Kbar 8192 x 8192), and
     each float64 instance at a small size."""
     from sympgpr_tpu_torch.gp.likelihood import nll_value_and_grad_theta
     from sympgpr_tpu_torch.kernels import PER_SE
-    from sympgpr_tpu_torch.linalg import triangular
+    from sympgpr_tpu_torch.linalg import potrf, triangular
     from sympgpr_tpu_torch.ops import cuda_cov, cuda_matvec, cuda_syrk, \
         cuda_trimm
 
@@ -1143,6 +1150,52 @@ def phase_large_kernels_vs_plain(dev, sgp):
     L, info = torch.linalg.cholesky_ex(Ky)
     assert int(info) == 0, "Cholesky failed at the trained hyperparameters"
     alpha = torch.cholesky_solve(z[:, None], L)[:, 0]
+
+    # the fit step's factor written over a copy of Ky, against its plain
+    # version (the same blocks) and cholesky_ex: each factor's backward
+    # error ||L L^T - Ky|| / ||Ky||, and the largest gaps between the
+    # factors (on the fit's Ky, conditioned by sig2n = 1e-2, two float32
+    # factors lie ~1e-6 (kernel, plain) and ~2e-3 (cholesky_ex) apart, so
+    # the elementwise bound is held on a well-conditioned SPD matrix)
+    buf = Ky.clone()
+    Lk, info_k = potrf.cholesky_in_place(buf)
+    Lk = torch.tril(Lk)
+    Lp, info_p = potrf.potrf_lower_reference(Ky.clone())
+    Lp = torch.tril(Lp)
+    assert int(info_k) == info_p == 0, (int(info_k), info_p)
+    res["potrf_fit_Ky_rel_err"] = _rel_to_max(Lk, Lp)
+    potrf_abs = float((Lk - Lp).abs().max())
+    res["potrf_vs_cholesky_ex_rel_err"] = _rel_to_max(Lk, L)
+    Ky64 = Ky.double()
+    res["potrf_backward_err"] = {
+        k: float((F.double() @ F.double().T - Ky64).norm() / Ky64.norm())
+        for k, F in (("kernel", Lk), ("plain", Lp), ("cholesky_ex", L))}
+    del Ky64, Lp, Lk
+    gw = torch.Generator(device=dev).manual_seed(0)
+    B = torch.randn(n, n, generator=gw, dtype=torch.float64, device=dev)
+    Kw = (B @ B.T / n + torch.eye(n, dtype=torch.float64, device=dev)).to(
+        Ky.dtype)
+    del B
+    res["potrf_rel_err"] = _rel_to_max(
+        torch.tril(potrf.cholesky_in_place(Kw.clone())[0]),
+        torch.tril(potrf.potrf_lower_reference(Kw.clone())[0]))
+    del Kw
+
+    def factor():
+        buf.copy_(Ky)
+        return potrf.cholesky_in_place(buf)
+
+    kernels["potrf"] = dict(
+        max_abs_err=potrf_abs,
+        # one call holds the copy of Ky into the buffer (268 MB); the
+        # profiler's device time of the factor's kernels does not
+        ms=_time(factor), kernel_ms=kernel_ms(factor, "potrf_", 5),
+        plain_ms=_time(lambda: potrf.potrf_lower_reference(Ky.clone())),
+        library_ms=_time(lambda: torch.linalg.cholesky_ex(Ky)),
+        # n^3 / 3 on the float64 tensor cores at 67 TFLOP/s
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(2 * n * n * elt, n ** 3 / 3))))
+    del buf
     where_ms = _time(lambda: torch.where(info == 0, L, math.nan),
                      calls=COV_CALLS)
 
@@ -1292,6 +1345,7 @@ def phase_large_kernels_vs_plain(dev, sgp):
                                                         X, z)),
         build=kernels["cov_fwd"]["ms"],
         cholesky=_time(lambda: torch.linalg.cholesky_ex(Ky)),
+        factor_in_place=kernels["potrf"]["ms"],
         alpha_solve=kernels["matvec"]["library_ms"],
         alpha_matvec=kernels["matvec"]["ms"],
         tri_inv=_time(lambda: triangular.tri_inv_blocked(L)),
@@ -1339,6 +1393,12 @@ def phase_large_kernels_vs_plain(dev, sgp):
     f64["matvec"] = _rel_to_max(cuda_matvec.matvec(A64[0], A64[1, 0]),
                                 cuda_matvec.matvec_reference(A64[0],
                                                              A64[1, 0]))
+    K64 = A64[0] @ A64[0].T / 256 + torch.eye(256, dtype=torch.float64,
+                                              device=dev)
+    K64 = K64[:250, :250].contiguous()
+    f64["potrf"] = _rel_to_max(
+        torch.tril(potrf.cholesky_in_place(K64.clone())[0]),
+        torch.tril(potrf.potrf_lower_reference(K64.clone())[0]))
     res["f64_rel_err"] = f64
     res["kernels"] = kernels
     emit("large_kernels_vs_plain", **res)
@@ -1353,6 +1413,9 @@ def phase_large_kernels_vs_plain(dev, sgp):
         contraction
     assert res["syrk_rel_err"] <= RTOL_SYRK_F32, res
     assert res["matvec_rel_err"] <= RTOL_MATVEC_F32, res
+    assert res["potrf_rel_err"] <= RTOL_POTRF_F32, res
+    assert res["potrf_backward_err"]["kernel"] <= 2 * res[
+        "potrf_backward_err"]["plain"], res["potrf_backward_err"]
     assert trimm_rel <= RTOL_TRIMM_F32, res
     assert max(res["trimm_ragged_300_rel_err"].values()) <= RTOL_TRIMM_F32, \
         res["trimm_ragged_300_rel_err"]

@@ -1,7 +1,8 @@
 // Matrix products with a lower-triangular operand on Hopper (sm_90a): the
 // batched triangular matmuls of the blocked triangular inverse and the syrk
-// S = W^T W that forms Ky^{-1} from W = L^{-1}; and the product y = S x
-// that takes the fit step's alpha = Ky^{-1} z from that S.
+// S = W^T W that forms Ky^{-1} from W = L^{-1}; the product y = S x that
+// takes the fit step's alpha = Ky^{-1} z from that S; and the fit step's
+// Cholesky factor L of Ky, written over Ky (potrf_*, notes further down).
 //
 // Replaces two Pallas kernels:
 //  * sympgpr_tpu/ops/pallas_trimm.py:40 _trimm_tile (batched A @ L and
@@ -170,6 +171,30 @@
 //    so a row is summed in one order on every run: no atomics.
 //  * Rows not 16-byte aligned (n off a multiple of the vector, or a
 //    misaligned pointer) take one element a lane (instance VEC = false).
+
+// potrf (Ky = L L^T, L written over Ky's lower triangle, row-major).
+//  * Replaces no TPU kernel: the JAX package factors with
+//    jnp.linalg.cholesky.  It replaces cuSOLVER's potrf in the fit step,
+//    whose column-major factor the blocked inverse copied back to
+//    row-major; this factor needs no copy.  The plain PyTorch version is
+//    linalg/potrf.py::potrf_lower_reference (the same blocks and order).
+//  * What bounds it: n^3 / 3 multiply-adds, 2.73 ms on the float64 tensor
+//    cores at n = 8192; and a chain of n pivots, each a reciprocal square
+//    root and a rank-1 update, that no parallelism shortens.
+//  * Right-looking over block columns of 128: the diagonal block's factor
+//    (potrf_diag, inside the update launch that last touches it), the
+//    panel below it (potrf_panel_kernel), the trailing update
+//    (potrf_update_kernel: float64 products and sums of the float64
+//    panel on the DMMA units, rounded to T once a block column).  With one
+//    block column of look-ahead on a second stream (potrf below), the
+//    chain of diagonal blocks and panels runs beside the wide updates.
+//  * On an H100 at n = 8192: float32 7.4-7.6 ms against cuSOLVER's
+//    7.86-7.92 ms in place; float64 8.7-8.9 against 7.04-7.08 (its update
+//    keeps two stages of operands beside a float64 tile).  The last ~35
+//    block columns are bound by the chain, ~60 us each: the diagonal
+//    tile's update and factor (~48 us) and the panel (~9 us).
+//  * The backward error ||L L^T - Ky|| / ||Ky|| in float32 is 9e-8 on the
+//    fit's Ky (cuSOLVER's 1.9e-6, LAPACK's 4.6e-7).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -716,6 +741,601 @@ int matvec(const T* S, const T* x, T* y, int n, void* stream) {
   return int(cudaGetLastError());
 }
 
+// --- potrf: the blocked Cholesky ------------------------------------------
+
+constexpr int kPB = 128;             // block column width
+constexpr int kPBK = 16;             // panel columns (k) a stage of the update
+constexpr int kPLd = kPB + 4;        // staged operand row, doubles
+constexpr int kPSlab = kPBK * kPLd;  // one operand of a stage, doubles
+constexpr int kPWM = 64, kPWN = 32;  // warp tile of the update
+constexpr int kPThreads = 32 * (kPB / kPWM) * (kPB / kPWN);
+constexpr int kPanelWarps = 32;  // at most, a block of the panel
+constexpr int kPanelRPW = 2;     // rows a warp of the panel
+constexpr int kPanelMaxRows = kPanelWarps * kPanelRPW;
+constexpr int kPanelSmem =
+    (kPB * kPB + kPB + kPanelMaxRows * (kPB + 1)) * int(sizeof(double));
+// the tiles an update launch takes from the trailing region at kr: all its
+// lower tile pairs, its first block column only, or all but that column
+constexpr int kTilesAll = 0, kTilesColumn = 1, kTilesRest = 2;
+constexpr int kPAux = kPB + 2;  // the diagonal factor's 1 / diag and flag
+static_assert(kPThreads == 256 && kPB == 128, "the diagonal factor's map");
+
+// Shared memory of the update: the operand ring, the tile of A being
+// updated (rows of ALD elements of T), and the diagonal factor's
+// 1 / diag(L) and failing column (kPAux doubles).  The diagonal tile, in
+// float64 for the factor, lands in the ring (float32; free once the
+// products are done) or over the tile of A itself (float64: each thread
+// reads then writes the same elements); its rows are 129 or 130 doubles,
+// so a warp reading rows a lane apart meets few bank conflicts.
+template <typename T>
+struct PotrfTile {
+  static constexpr int V = 16 / int(sizeof(T));
+  static constexpr int STAGES = sizeof(T) == 4 ? 4 : 2;
+  static constexpr int RING = STAGES * 2 * kPSlab;  // doubles
+  static constexpr int ALD = sizeof(T) == 4 ? kPB + 8 : kPB + 2;
+  static constexpr int SLD = sizeof(T) == 4 ? kPB + 1 : ALD;
+  static constexpr int ABYTES = kPB * ALD * int(sizeof(T));
+  static constexpr int SMEM = RING * 8 + ABYTES + kPAux * 8;
+  static_assert(sizeof(T) == 8 || kPB * SLD <= RING, "S fits the ring");
+};
+
+// Rows of the float64 panel P: n rounded up to a pair, so each row is
+// 16-byte aligned.
+inline long long potrf_ldp(int n) {
+  return (n + 1LL) / 2 * 2;
+}
+
+// The factor of the w x w diagonal block at (k0, k0), w = min(128, n - k0),
+// by one block of 256 threads, in place in the float64 tile S (row sld):
+// left-looking over panels of 8 columns with one panel of look-ahead.
+// Warp 0 factors panel c0 (rows c0 ... 127, lane l holding rows c0 + l,
+// + 32, + 64, + 96; every lane also a copy of the panel's top 8 rows, so
+// its pivots and columns need no shuffle), with no block barrier;
+// meanwhile warps 1-7 take the product of the panels before
+// c0 off panel c0 + 8 on the tensor cores (m16n8k4, 16 rows a fragment);
+// after a barrier they take panel c0's rank-8 product off it too.  Two
+// block barriers a panel of 8: the chain of 128 pivots is the cost, ~31 us
+// on an H100 (a 128-pivot chain of rsqrt and two multiply-adds in one
+// thread alone takes 7 us there).  Versions that kept 8 x 8 blocks in the
+// registers of 136 threads with a block barrier a column took 62-105 us;
+// left-looking by panels of 32, a panel factored by one warp, 57-71 us;
+// loops over columns in shared memory, 136 us (each load waits on the
+// store before it); shuffles in place of the top rows' copy, 35 us.
+// Writes L over A's lower triangle (rounded to T), L^T and 1 / diag(L) in
+// float64 to D for the panel, and info: reset on the first block column,
+// else set only where no earlier column failed.
+template <typename T>
+__device__ __forceinline__ void potrf_diag(double* S, int sld, double* aux,
+                                           T* A, int n, int k0, double* D,
+                                           int* info, int reset) {
+  double* const rd = aux;
+  int* const fail_s = reinterpret_cast<int*>(aux + kPB);
+  const int w = min(kPB, n - k0);
+  const int tid = int(threadIdx.x), warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;
+  int fail = -1;
+  double acc[2][4];
+  __syncthreads();  // the tile is in S
+  for (int c0 = 0; c0 < w; c0 += 8) {
+    const int c1 = c0 + 8;
+    if (warp == 0) {  // panel c0
+      // every lane keeps its own copy of the panel's top 8 rows (lower
+      // part), updated with the same operations as the lanes that hold
+      // them, so a pivot and its column come without a shuffle
+      double v[4][8], top[8][8];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const double* row = S + min(c0 + lane + 32 * q, kPB - 1) * sld + c0;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) v[q][jj] = row[jj];
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int jj = 0; jj <= i; ++jj)
+          top[i][jj] = S[min(c0 + i, kPB - 1) * sld + c0 + jj];
+      __syncwarp();  // every lane has read the top rows before any writes
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (c0 + j < w) {  // the same for the warp
+          const double d = top[j][j];
+          if (fail < 0 && !(d > 0.0 && isfinite(d))) fail = c0 + j;
+          const double rs = rsqrt(d);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) v[q][j] *= rs;
+          if (lane == j) v[0][j] = d * rs;
+          if (lane == 0) rd[c0 + j] = rs;
+#pragma unroll
+          for (int i = j + 1; i < 8; ++i) top[i][j] *= rs;
+          top[j][j] = d * rs;
+#pragma unroll
+          for (int jj = j + 1; jj < 8; ++jj) {
+            const double l = top[jj][j];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) v[q][jj] = fma(-v[q][j], l, v[q][jj]);
+#pragma unroll
+            for (int i = jj; i < 8; ++i)
+              top[i][jj] = fma(-top[i][j], l, top[i][jj]);
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r = c0 + lane + 32 * q;
+        if (r < kPB)
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) S[r * sld + c0 + jj] = v[q][jj];
+      }
+    } else if (c1 < w) {  // panels before c0 off panel c1
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[h][i] = 0.0;
+        const int r0 = c1 + 16 * (warp - 1 + 7 * h);
+        if (r0 < kPB) {
+          const double* a0 = S + min(r0 + g, kPB - 1) * sld + tq;
+          const double* a1 = S + min(r0 + g + 8, kPB - 1) * sld + tq;
+          const double* bp = S + (c1 + g) * sld + tq;
+          for (int k = 0; k < c0; k += 4) {
+            const double a[2] = {a0[k], a1[k]};
+            mma_f64(acc[h], a, bp[k]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (warp != 0 && c1 < w) {  // panel c0 off panel c1
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r0 = c1 + 16 * (warp - 1 + 7 * h);
+        if (r0 < kPB) {
+          const double* a0 = S + min(r0 + g, kPB - 1) * sld + tq;
+          const double* a1 = S + min(r0 + g + 8, kPB - 1) * sld + tq;
+          const double* bp = S + (c1 + g) * sld + tq;
+#pragma unroll
+          for (int k = c0; k < c1; k += 4) {
+            const double a[2] = {a0[k], a1[k]};
+            mma_f64(acc[h], a, bp[k]);
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = r0 + g + 8 * (i / 2), c = c1 + 2 * tq + i % 2;
+            if (r < kPB) S[r * sld + c] -= acc[h][i];
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (tid == 0) *fail_s = fail;  // warp 0's
+  for (int r = warp; r < w; r += kPThreads / 32)
+    for (int c = lane; c <= r; c += 32)
+      A[size_t(k0 + r) * n + k0 + c] = T(S[r * sld + c]);
+  for (int c = warp; c < w; c += kPThreads / 32)
+    for (int r = c + lane; r < w; r += 32) D[c * kPB + r] = S[r * sld + c];
+  for (int r = tid; r < w; r += kPThreads) D[kPB * kPB + r] = rd[r];
+  __syncthreads();
+  if (tid == 0) {
+    const int f = *fail_s;
+    if (reset)
+      *info = f >= 0 ? k0 + f + 1 : 0;
+    else if (f >= 0 && *info == 0)
+      *info = k0 + f + 1;
+  }
+}
+
+// The trailing update A_ij -= L_i L_j^T of one lower 128 x 128 tile pair
+// (i, j) of the region from row and column kr, the products and sums in
+// float64 on the tensor cores from the float64 panel P (K rows of k, one
+// column a row of A), subtracted from the tile and rounded to T once.
+// tiles: the region's lower tile pairs, decoded as in syrk_kernel with
+// (0, 0) first (kTilesAll); its first block column, (0, 0) first
+// (kTilesColumn); or the pairs right of that column (kTilesRest).  Block
+// (0, 0) then factors the updated tile, the next block column's diagonal
+// block, while the others update theirs.  K = 0 launches that block alone
+// (the first block column).  A diagonal tile writes its lower triangle only.  VEC: n
+// is a multiple of the 16-byte vector and A is 16-byte aligned.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kPThreads, 1)
+    potrf_update_kernel(T* __restrict__ A, int n, int kr, int K,
+                        const double* __restrict__ P, long long ldp,
+                        double* __restrict__ D, int* __restrict__ info,
+                        int reset, int tiles) {
+  using G = PotrfTile<T>;
+  constexpr int S = G::STAGES, V = G::V;
+  constexpr int MT = kPWM / 16, NT = kPWN / 8;
+  extern __shared__ double2 potrf_smem[];
+  double* const ring = reinterpret_cast<double*>(potrf_smem);
+  T* const at = reinterpret_cast<T*>(ring + G::RING);
+  double* const aux = reinterpret_cast<double*>(
+      reinterpret_cast<char*>(at) + G::ABYTES);
+
+  const int tid = int(threadIdx.x), warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int wm = (warp % (kPB / kPWM)) * kPWM;
+  const int wn = (warp / (kPB / kPWM)) * kPWN;
+  const int ntiles = K / kPBK;
+  constexpr int HALF = kPBK * kPB / 2;  // chunks of one operand
+  constexpr int CPT = HALF / kPThreads;  // chunks of an operand a thread
+  constexpr int RSTEP = kPThreads / (kPB / 2);  // rows between them
+  static_assert(CPT * kPThreads == HALF && RSTEP * CPT == kPBK, "chunks");
+  const int ckk = tid / (kPB / 2), cc = 2 * (tid % (kPB / 2));
+  const int dst = ckk * kPLd + cc;
+
+  // A tile pair's place and copies.  Stage kt: the panel's rows kt * 16
+  // ... + 15 at the tile's rows (A operand) and columns (B operand),
+  // 16-byte chunks of two doubles, rows and columns past n zero-filled; a
+  // thread's chunks keep one column pair of each operand, HALF / kPThreads
+  // rows of the stage apart, so their sources are set up once a tile.
+  struct Tile {
+    int bi, bj, row0, col0, ok_a, ok_b;
+    const double *src_a, *src_b;
+    size_t step_a, step_b, stage_a, stage_b;
+  };
+  const auto tile_at = [&](int t) {
+    Tile u;
+    u.bi = t;
+    u.bj = 0;  // kTilesColumn
+    if (tiles != kTilesColumn) {
+      int bi = int((sqrt(8.0 * t + 1.0) - 1.0) * 0.5);
+      while (bi * (bi + 1) / 2 > t) --bi;
+      while ((bi + 1) * (bi + 2) / 2 <= t) ++bi;
+      u.bi = bi;
+      u.bj = t - bi * (bi + 1) / 2;
+      if (tiles == kTilesRest) ++u.bi, ++u.bj;
+    }
+    u.row0 = kr + u.bi * kPB;
+    u.col0 = kr + u.bj * kPB;
+    u.ok_a = max(0, min(2, n - u.row0 - cc));
+    u.ok_b = max(0, min(2, n - u.col0 - cc));
+    u.src_a = u.ok_a ? P + size_t(ckk) * ldp + u.row0 + cc : P;
+    u.src_b = u.ok_b ? P + size_t(ckk) * ldp + u.col0 + cc : P;
+    u.step_a = u.ok_a ? size_t(RSTEP) * ldp : 0;
+    u.step_b = u.ok_b ? size_t(RSTEP) * ldp : 0;
+    u.stage_a = u.ok_a ? size_t(kPBK) * ldp : 0;
+    u.stage_b = u.ok_b ? size_t(kPBK) * ldp : 0;
+    return u;
+  };
+  const auto issue = [&](const Tile& u, int slot, int kt) {
+    double* st = ring + slot * 2 * kPSlab + dst;
+    const double* a = u.src_a + size_t(kt) * u.stage_a;
+    const double* b = u.src_b + size_t(kt) * u.stage_b;
+#pragma unroll
+    for (int p = 0; p < CPT; ++p) {
+      cp_async<16>(st + p * RSTEP * kPLd, a + p * u.step_a, 8 * u.ok_a);
+      cp_async<16>(st + kPSlab + p * RSTEP * kPLd, b + p * u.step_b,
+                   8 * u.ok_b);
+    }
+  };
+  // the tile of A, rows and columns past n zero-filled; issued with the
+  // last stage (or alone where K = 0), as the epilogue alone reads it
+  const auto issue_tile = [&](const Tile& u) {
+    constexpr int CPR = kPB / V;  // 16-byte chunks a row
+#pragma unroll 4
+    for (int p = 0; p < kPB * CPR / kPThreads; ++p) {
+      const int q = tid + p * kPThreads;
+      const int r = u.row0 + q / CPR, c = u.col0 + (q % CPR) * V;
+      T* d = at + (q / CPR) * G::ALD + (q % CPR) * V;
+      const int ok = r < n ? max(0, min(V, n - c)) : 0;
+      const T* src = A + size_t(r) * n + c;
+      if constexpr (VEC) {
+        cp_async<16>(d, ok ? src : A, ok * int(sizeof(T)));
+      } else {
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          cp_async<int(sizeof(T))>(d + j, j < ok ? src + j : A,
+                                   j < ok ? int(sizeof(T)) : 0);
+      }
+    }
+  };
+  const auto prologue = [&](const Tile& u) {
+#pragma unroll
+    for (int s = 0; s < S - 1; ++s) {
+      if (s < ntiles) issue(u, s, s);
+      if (s == max(ntiles - 1, 0)) issue_tile(u);
+      cp_async_commit();
+    }
+  };
+
+  const int t = int(blockIdx.x);
+  const Tile u = tile_at(t);
+  prologue(u);
+  double acc[MT][NT][4];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mi][ni][i] = 0.0;
+
+  for (int kt = 0; kt < ntiles; ++kt) {
+    cp_async_wait<S - 2>();  // this thread's copies of stage kt are in
+    __syncthreads();         // everyone's are; slot (kt - 1) % S is free
+    const int next = kt + S - 1;
+    if (next < ntiles) {
+      issue(u, next % S, next);
+      if (next == ntiles - 1) issue_tile(u);
+    }
+    cp_async_commit();
+    const double* as = ring + (kt % S) * 2 * kPSlab + tq * kPLd + wm + g;
+    const double* bs = as - wm + kPSlab + wn;
+#pragma unroll
+    for (int kk = 0; kk < kPBK; kk += 4) {
+      double b[NT];
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni) b[ni] = bs[kk * kPLd + ni * 8];
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        const double a[2] = {as[kk * kPLd + mi * 16],
+                             as[kk * kPLd + mi * 16 + 8]};
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni) mma_f64(acc[mi][ni], a, b[ni]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the tile of A is in; the ring is free
+
+  const bool factor = t == 0 && tiles != kTilesRest;
+  double* const Sd = sizeof(T) == 4 ? ring : reinterpret_cast<double*>(at);
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rl = wm + mi * 16 + g + 8 * h, r = u.row0 + rl;
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni) {
+        const int cl = wn + ni * 8 + 2 * tq, c = u.col0 + cl;
+        const T* ap = at + rl * G::ALD + cl;
+        const double v0 = double(ap[0]) - acc[mi][ni][2 * h];
+        const double v1 = double(ap[1]) - acc[mi][ni][2 * h + 1];
+        if (factor) {
+          Sd[rl * G::SLD + cl] = v0;
+          Sd[rl * G::SLD + cl + 1] = v1;
+          continue;
+        }
+        if (r >= n) continue;
+        const bool ok0 = c < n && (u.bi != u.bj || c <= r);
+        const bool ok1 = c + 1 < n && (u.bi != u.bj || c + 1 <= r);
+        T* d = A + size_t(r) * n + c;
+        if (VEC && ok0 && ok1) {
+          typename Pair<T>::type v;
+          v.x = T(v0);
+          v.y = T(v1);
+          *reinterpret_cast<typename Pair<T>::type*>(d) = v;
+        } else {
+          if (ok0) d[0] = T(v0);
+          if (ok1) d[1] = T(v1);
+        }
+      }
+    }
+  if (factor)  // the whole block
+    potrf_diag<T>(Sd, G::SLD, aux, A, n, kr, D, info, reset);
+}
+
+// L_i = A_i L_kk^-T for the rows i of block column k0 below its diagonal
+// block: forward substitution in float64 against L_kk^T and 1 / diag(L_kk)
+// from D, four rows a warp, lane l holding columns l, l + 32, l + 64,
+// l + 96 of each.  Step m takes x_m of each row from its lane by a shuffle
+// and subtracts x_m L_kk[c][m] from the columns c > m; L_kk's column m is
+// read from shared memory once a warp for its four rows.  On an H100 this
+// takes 12-26 us a panel; a row a warp (bound by those reads), eight rows
+// a warp with x_m posted to shared memory, a row a thread, and a warp a
+// block of 32 columns took 20-53 us.  The launch sizes the blocks to the
+// rows, 1-16 warps, so that few rows still spread over the SMs.  Each
+// block loads D once (four copy groups of 32 rows, the first waited for
+// before step 0) and walks over groups of rows.  Writes each row to A
+// (rounded to T) and, through a staging tile, to P as consecutive doubles
+// a panel column.
+template <typename T>
+__global__ void __launch_bounds__(kPanelWarps * 32, 1)
+    potrf_panel_kernel(T* __restrict__ A, int n, int k0,
+                       double* __restrict__ P, long long ldp,
+                       const double* __restrict__ D) {
+  constexpr int RPW = kPanelRPW;
+  extern __shared__ double2 panel_smem[];
+  double* const dt = reinterpret_cast<double*>(panel_smem);
+  double* const rd = dt + kPB * kPB;
+  double* const xs = rd + kPB;
+  const int tid = int(threadIdx.x), warp = tid / 32, lane = tid % 32;
+  const int nthreads = int(blockDim.x), rows_blk = nthreads / 32 * RPW;
+  constexpr int GROUP = 32 * kPB / 2;  // 16-byte chunks of 32 rows of D
+#pragma unroll
+  for (int grp = 0; grp < 4; ++grp) {
+    for (int q = tid; q < GROUP; q += nthreads)
+      cp_async<16>(dt + 2 * (grp * GROUP + q), D + 2 * (grp * GROUP + q), 16);
+    if (grp == 0)
+      for (int q = tid; q < kPB / 2; q += nthreads)
+        cp_async<16>(rd + 2 * q, D + kPB * kPB + 2 * q, 16);
+    cp_async_commit();
+  }
+  const int rbeg = k0 + kPB;
+  const int groups = (n - rbeg + rows_blk - 1) / rows_blk;
+  bool first = true;
+  for (int gi = int(blockIdx.x); gi < groups; gi += int(gridDim.x)) {
+    const int rb = rbeg + gi * rows_blk, r0 = rb + warp * RPW;
+    double a[RPW][4];
+#pragma unroll
+    for (int i = 0; i < RPW; ++i)
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        a[i][s] = r0 + i < n
+                      ? double(A[size_t(r0 + i) * n + k0 + lane + 32 * s])
+                      : 0.0;
+#pragma unroll
+    for (int sb = 0; sb < 4; ++sb) {
+      if (first) {  // the same for every thread
+        if (sb == 0) cp_async_wait<3>();
+        if (sb == 1) cp_async_wait<2>();
+        if (sb == 2) cp_async_wait<1>();
+        if (sb == 3) cp_async_wait<0>();
+        __syncthreads();
+      }
+#pragma unroll
+      for (int mm = 0; mm < 32; ++mm) {
+        const int m = 32 * sb + mm;
+        double x[RPW], col[4];
+#pragma unroll
+        for (int i = 0; i < RPW; ++i)
+          x[i] = __shfl_sync(0xffffffffu, a[i][sb], mm) * rd[m];
+#pragma unroll
+        for (int s = sb; s < 4; ++s) col[s] = dt[m * kPB + lane + 32 * s];
+#pragma unroll
+        for (int i = 0; i < RPW; ++i) {
+          if (lane == mm) a[i][sb] = x[i];
+#pragma unroll
+          for (int s = sb; s < 4; ++s)
+            if (s > sb || lane > mm) a[i][s] = fma(-x[i], col[s], a[i][s]);
+        }
+      }
+    }
+    first = false;
+#pragma unroll
+    for (int i = 0; i < RPW; ++i)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        if (r0 + i < n) A[size_t(r0 + i) * n + k0 + lane + 32 * s] = T(a[i][s]);
+        xs[(warp * RPW + i) * (kPB + 1) + lane + 32 * s] = a[i][s];
+      }
+    __syncthreads();
+    for (int e = tid; e < kPB * rows_blk; e += nthreads) {
+      const int kk = e / rows_blk, j = e % rows_blk;
+      if (rb + j < n) P[size_t(kk) * ldp + rb + j] = xs[j * (kPB + 1) + kk];
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+}
+
+template <typename T, bool VEC>
+cudaError_t potrf_update_launch(T* A, int n, int kr, int K, const double* P,
+                                long long ldp, double* D, int* info,
+                                int reset, int tiles, int count,
+                                cudaStream_t st) {
+  potrf_update_kernel<T, VEC><<<unsigned(count), kPThreads,
+                                PotrfTile<T>::SMEM, st>>>(
+      A, n, kr, K, P, ldp, D, info, reset, tiles);
+  return cudaGetLastError();
+}
+
+// A second stream of the highest priority and four events a device, made
+// on first use and kept: the factor's chain (each block column's diagonal
+// block, its panel and the next block column's update) runs there, ahead
+// of the rest of the trailing update on the caller's stream.  Two host
+// threads must not factor on one device at once: they would share them.
+struct LookAhead {
+  cudaStream_t side = nullptr;
+  cudaEvent_t ev[4] = {};  // entry, rest of an update done, panel done, exit
+};
+
+inline cudaError_t look_ahead(int dev, LookAhead** out) {
+  static LookAhead la[64];
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  LookAhead& l = la[dev];
+  if (!l.side) {
+    int lo = 0, hi = 0;
+    cudaError_t e = cudaDeviceGetStreamPriorityRange(&lo, &hi);
+    if (e == cudaSuccess)
+      e = cudaStreamCreateWithPriority(&l.side, cudaStreamNonBlocking, hi);
+    for (int i = 0; i < 4 && e == cudaSuccess; ++i)
+      e = cudaEventCreateWithFlags(&l.ev[i], cudaEventDisableTiming);
+    if (e != cudaSuccess) {
+      l.side = nullptr;
+      return e;
+    }
+  }
+  *out = &l;
+  return cudaSuccess;
+}
+
+// The whole factor, issued from the host with no sync: right-looking over
+// block columns of 128 with one block column of look-ahead.  On the side
+// stream, for block column k: its panel (into P's half k % 2), then the
+// update of block column k + 1 alone, whose first block factors the next
+// diagonal block.  On the caller's stream: the update of the tiles right of
+// block column k + 1.  Block column k + 1's update waits for the caller's
+// update of step k - 1 (which updated it last), the caller's update of
+// step k for panel k; panel k + 2 overwrites P's half k % 2 only after
+// that.  The chain of diagonal blocks, panels and single block columns thus
+// runs beside the wide updates, which it held up one after the other in a
+// single stream: 8.25 against 8.66 ms at n = 8192 float32 on an H100 (the
+// same kernels otherwise).  2 + 3 (ceil(n / 128) - 1) launches.  work: potrf_work_doubles(n)
+// doubles, the panel P (two halves of 128 rows of ldp) then D (L_kk^T,
+// then 1 / diag(L_kk)).
+template <typename T>
+int potrf(T* A, int n, double* work, int* info, void* stream) {
+  using G = PotrfTile<T>;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  static unsigned long long ready = 0;  // a bit a device: attributes set
+  if (e == cudaSuccess && dev < 64 && !(ready >> dev & 1ULL)) {
+    e = cudaFuncSetAttribute(potrf_update_kernel<T, true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             G::SMEM);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(potrf_update_kernel<T, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               G::SMEM);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(potrf_panel_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kPanelSmem);
+    if (e == cudaSuccess) ready |= 1ULL << dev;
+  }
+  LookAhead* la = nullptr;
+  if (e == cudaSuccess) e = look_ahead(dev, &la);
+  if (e != cudaSuccess) return int(e);
+  const cudaStream_t side = la->side;
+  cudaEvent_t* const ev = la->ev;
+  const long long ldp = potrf_ldp(n);
+  double* const D = work + 2 * kPB * ldp;
+  const bool vec =
+      n % G::V == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0;
+  const auto update = [&](int kr, int K, const double* P, int reset,
+                          int tiles, int count, cudaStream_t s) {
+    return vec ? potrf_update_launch<T, true>(A, n, kr, K, P, ldp, D, info,
+                                              reset, tiles, count, s)
+               : potrf_update_launch<T, false>(A, n, kr, K, P, ldp, D, info,
+                                               reset, tiles, count, s);
+  };
+  const auto panel = [&](int k0, double* P) {
+    const int rows = n - k0 - kPB;
+    const int warps = max(1, min(kPanelWarps,
+                                 (rows + kPanelRPW * sms - 1) /
+                                     (kPanelRPW * sms)));
+    const int groups = (rows + warps * kPanelRPW - 1) / (warps * kPanelRPW);
+    potrf_panel_kernel<T><<<unsigned(min(groups, sms)), unsigned(32 * warps),
+                            kPanelSmem, side>>>(A, n, k0, P, ldp, D);
+    return cudaGetLastError();
+  };
+  e = cudaEventRecord(ev[0], st);
+  if (e == cudaSuccess) e = cudaStreamWaitEvent(side, ev[0], 0);
+  if (e == cudaSuccess) e = update(0, 0, work, 1, kTilesAll, 1, side);
+  for (int k = 0; e == cudaSuccess && (k + 1) * kPB < n; ++k) {
+    const int k0 = k * kPB, kr = k0 + kPB;
+    double* const P = work + (k % 2) * kPB * ldp;
+    const int nt = (n - kr + kPB - 1) / kPB;
+    e = panel(k0, P);
+    if (e == cudaSuccess) e = cudaEventRecord(ev[2], side);
+    // ev[1] still marks the update of step k - 1, recorded below
+    if (e == cudaSuccess && k > 0) e = cudaStreamWaitEvent(side, ev[1], 0);
+    if (e == cudaSuccess)
+      e = update(kr, kPB, P, 0, kTilesColumn, nt, side);
+    if (e == cudaSuccess && nt > 1) {
+      e = cudaStreamWaitEvent(st, ev[2], 0);
+      if (e == cudaSuccess)
+        e = update(kr, kPB, P, 0, kTilesRest, nt * (nt - 1) / 2, st);
+      if (e == cudaSuccess) e = cudaEventRecord(ev[1], st);
+    }
+  }
+  if (e == cudaSuccess) e = cudaEventRecord(ev[3], side);
+  if (e == cudaSuccess) e = cudaStreamWaitEvent(st, ev[3], 0);
+  return int(e);
+}
+
 }  // namespace
 
 // Plain C interface for ctypes.  Every pointer is a device pointer to
@@ -759,4 +1379,24 @@ extern "C" int matvec_f32(const float* S, const float* x, float* y, int n,
 extern "C" int matvec_f64(const double* S, const double* x, double* y, int n,
                           void* stream) {
   return matvec<double>(S, x, y, n, stream);
+}
+
+// potrf: A is (n, n), n >= 1; its lower triangle is overwritten by the
+// Cholesky factor L (A = L L^T), row-major; its strict upper triangle is
+// never written, and no value of it reaches L.  work holds
+// potrf_work_doubles(n) doubles; info is one device int, set to 0 or to the
+// order of the first leading minor whose pivot is not positive or not
+// finite.
+extern "C" int potrf_work_doubles(int n) {
+  return int(2 * kPB * potrf_ldp(n) + kPB * kPB + kPB);
+}
+
+extern "C" int potrf_lower_f32(float* A, int n, double* work, int* info,
+                               void* stream) {
+  return potrf<float>(A, n, work, info, stream);
+}
+
+extern "C" int potrf_lower_f64(double* A, int n, double* work, int* info,
+                               void* stream) {
+  return potrf<double>(A, n, work, info, stream);
 }

@@ -190,16 +190,17 @@ def nll_value_and_grad(kernel: Kernel, params: Tensor, sig: Tensor,
     ``sig2n`` is fixed.
 
     Ky is a buffer of this step's own, read by nothing after its factor,
-    so on a CUDA device the factor is written over it
-    (``linalg/potrf.py::cholesky_in_place``: cuSOLVER's potrf with no copy
-    in and no mask).  The strict upper triangle of that L still holds Ky's
-    entries; the step reads L's lower triangle only (the inverse's base
-    solves and products, the diagonal for the log-determinant).
+    so on a CUDA device the factor is written over it, row-major
+    (``linalg/potrf.py::cholesky_in_place``: the hand-written blocked
+    Cholesky, with no copy in, no mask and no copy back).  The strict upper
+    triangle of that L still holds Ky's entries; the step reads L's lower
+    triangle only (the inverse's base solves and products, the diagonal
+    for the log-determinant).
 
     A failed factorization gives NaN in value and gradient, as in the JAX
-    package: the factor reports it through ``info`` on the device and
-    leaves a finite partial factor, so a NaN scalar is added to the three
-    results on the device, with no host sync.
+    package: the factor reports it through ``info`` on the device and may
+    leave NaN below the failing column, so a NaN scalar is added to the
+    three results on the device, with no host sync.
     """
     fused = cuda_cov.want_cuda_build(kernel, X)
     with span("sympgpr::nll.build"):

@@ -1,163 +1,119 @@
 """The large-N fit step's Cholesky factor of Ky, written over Ky itself.
 
 ``torch.linalg.cholesky_ex`` on a CUDA matrix copies it into a new
-column-major buffer, runs cuSOLVER's potrf with the lower fill mode there
-and masks the other triangle: on an (8192, 8192) float32 Ky the copy and
-the mask move 1.1 GB, take ~1.2 ms and compute nothing.
+column-major buffer, runs cuSOLVER's potrf there and masks the other
+triangle; a blocked inverse of that L then copies it back to row-major.
+On an (8192, 8192) float32 Ky those copies and the mask move 1.6 GB and
+compute nothing.  ``cholesky_in_place`` factors Ky in its own buffer by
+the hand-written blocked Cholesky of ``csrc/tri_matmul.cu``
+(``potrf_diag``, ``potrf_panel_kernel``, ``potrf_update_kernel``): L lands
+row-major over Ky's lower triangle, the triangle ``cholesky_ex`` reads,
+and Ky's strict upper triangle is left as it was.  The JAX package
+factors with ``jnp.linalg.cholesky``; no Pallas kernel has this role.
 
-Ky is symmetric, so its row-major bytes read as a column-major matrix are
-Ky as well.  ``cholesky_in_place`` runs the same routine,
-``cusolverDnXpotrf`` with the lower fill mode, on Ky's own buffer read
-column-major.  It reads the elements (i >= j) column-major, which are the
-elements (row <= col) row-major, and writes L there.  Read row-major the
-buffer holds U = L^T above its diagonal, so its transposed view
-``Ky.mT`` is L in the layout ``cholesky_ex`` returns (column-major), and
-the blocked inverse's one copy to row-major stays.  The factor is of Ky's
-upper triangle where ``cholesky_ex``'s is of its lower one: the same
-numbers where Ky is symmetric to the bit, and where it is not (the fit's
-covariance build rounds its two triangles apart) a factor of the same
-matrix to rounding.  The other triangle of the buffer keeps Ky's entries:
-callers read the lower triangle of L only.
+The algorithm, right-looking over block columns of 128: factor the
+diagonal block, solve the rows below it against that factor (the panel
+L_i = A_i L_kk^-T), update the lower tiles of the trailing matrix
+(A_ij -= L_i L_j^T).  The panel is kept in float64 beside L, and the
+products and sums of the update are float64 (the float64 tensor cores
+on the card), rounded to Ky's dtype once an update: cuSOLVER's float32
+factor summed in float32 and set the float32 fit's gradient error
+(``tools/large_n_grad_witness.py``).  ``potrf_lower_reference`` is the
+same algorithm in plain PyTorch, in the same block order.
 
-The upper fill mode on the same buffer would land L row-major and spare
-that copy too, but cuSOLVER runs it 5 ms slower at n = 8192 float32
-(12.89 against 7.86 ms on an H100), more than the copy's 0.6 ms.
-
-cuSOLVER is the library PyTorch's linear algebra has already loaded into
-the process, found by its path in the process's memory map and called
-through ``ctypes`` on PyTorch's current stream, with its workspace from
-the caching allocator and ``info`` left on the device (no host read).  One
-handle a device is made on first use.  Any other input (a CPU tensor, a
-batch, a non-contiguous view, another dtype) takes
-``torch.linalg.cholesky_ex``.
+Any other input than a non-empty square contiguous CUDA matrix of
+float32 or float64 (a CPU tensor, a batch, a view) takes
+``torch.linalg.cholesky_ex`` and leaves Ky as it was.
 """
 
 from __future__ import annotations
 
 import ctypes
-from pathlib import Path
 
 import torch
 
+from sympgpr_tpu_torch.ops import _build
 from sympgpr_tpu_torch.profiling import count
 
 Tensor = torch.Tensor
 
-_FILL_LOWER = 0  # cublasFillMode_t: CUBLAS_FILL_MODE_LOWER
-_DATA_TYPE = {torch.float32: 0, torch.float64: 1}  # CUDA_R_32F, CUDA_R_64F
-_VP, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-_SIGNATURES = {
-    "cusolverDnCreate": [_VP],
-    "cusolverDnCreateParams": [_VP],
-    "cusolverDnSetStream": [_VP, _VP],
-    # handle, params, uplo, n, dataTypeA, A, lda, computeType, then the
-    # device and host workspace sizes (out) or buffers and sizes, and info
-    "cusolverDnXpotrf_bufferSize": [_VP, _VP, _INT, _I64, _INT, _VP, _I64,
-                                    _INT, _VP, _VP],
-    "cusolverDnXpotrf": [_VP, _VP, _INT, _I64, _INT, _VP, _I64, _INT, _VP,
-                         ctypes.c_size_t, _VP, ctypes.c_size_t, _VP],
-}
+BLOCK = 128  # block column width, the kernel's kPB
+_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_void_p]
 
 
-class _Solver:
-    """cuSOLVER's entry points; per device a handle and its params; per
-    (device, n, dtype) the workspace sizes and the host workspace."""
+def potrf_lower_reference(A: Tensor, block: int = BLOCK,
+                          acc: torch.dtype = torch.float64
+                          ) -> tuple[Tensor, int]:
+    """Plain version, written over A: (A, info) with the Cholesky factor
+    in A's lower triangle and its strict upper triangle untouched.
 
-    def __init__(self, device: torch.device):
-        lib = ctypes.CDLL(str(_loaded_cusolver(device)))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = argtypes, ctypes.c_int
-            setattr(self, name[len("cusolverDn"):], fn)
-        self.handles: dict[int, tuple[_VP, _VP]] = {}
-        self.work: dict[tuple, tuple[int, int, ctypes.Array | None]] = {}
-
-    def handle(self, index: int) -> tuple[_VP, _VP]:
-        if index not in self.handles:
-            handle, params = _VP(), _VP()
-            with torch.cuda.device(index):
-                _check(self.Create(ctypes.byref(handle)), "cusolverDnCreate")
-                _check(self.CreateParams(ctypes.byref(params)),
-                       "cusolverDnCreateParams")
-            self.handles[index] = (handle, params)
-        return self.handles[index]
-
-    def workspace(self, index: int, A: Tensor, dtype: int):
-        """(device bytes, host bytes, host buffer) for potrf of A."""
-        key = (index, A.shape[0], dtype)
-        if key not in self.work:
-            handle, params = self.handle(index)
-            dev_bytes, host_bytes = ctypes.c_size_t(), ctypes.c_size_t()
-            _check(self.Xpotrf_bufferSize(
-                handle, params, _FILL_LOWER, A.shape[0], dtype, A.data_ptr(),
-                A.shape[0], dtype, ctypes.byref(dev_bytes),
-                ctypes.byref(host_bytes)), "cusolverDnXpotrf_bufferSize")
-            host = host_bytes.value
-            self.work[key] = (dev_bytes.value, host,
-                              ctypes.create_string_buffer(host) if host
-                              else None)
-        return self.work[key]
-
-
-_SOLVER: _Solver | None = None
-
-
-def _loaded_cusolver(device: torch.device) -> Path:
-    """Path of the cuSOLVER library in this process, after a 1 x 1
-    factorization has made PyTorch load its CUDA linear algebra."""
-    torch.linalg.cholesky_ex(torch.ones((1, 1), device=device))
-    with open("/proc/self/maps") as maps:
-        for line in maps:
-            path = Path(line.split()[-1])
-            if path.name.startswith("libcusolver.so"):
-                return path
-    raise RuntimeError("PyTorch's CUDA linear algebra loaded no cuSOLVER "
-                       "library into this process")
-
-
-def _check(status: int, what: str) -> None:
-    if status != 0:
-        raise RuntimeError(f"{what} failed: cusolverStatus {status}")
+    Block column k0: the factor of the diagonal block (``cholesky_ex`` in
+    ``acc`` on the updated block, before it is rounded), the panel below it
+    by a triangular solve in ``acc``, the trailing matrix's lower triangle
+    less the panel's product in ``acc``, each rounded to A's dtype once.
+    info is 0, or the order of the first failing leading minor; the factor
+    goes on past a failure as the kernel does.  ``acc=torch.float32``
+    gives the same blocks with float32 sums.
+    """
+    n = A.shape[0]
+    info = 0
+    D = A[:min(block, n), :min(block, n)].to(acc)
+    for k0 in range(0, n, block):
+        w = min(block, n - k0)
+        Lkk, fail = torch.linalg.cholesky_ex(D)
+        if int(fail) and not info:
+            info = k0 + int(fail)
+        diag = A[k0:k0 + w, k0:k0 + w]
+        low = torch.tril(torch.ones_like(diag, dtype=torch.bool))
+        diag.copy_(torch.where(low, Lkk.to(A.dtype), diag))
+        if k0 + w == n:
+            break
+        rest = slice(k0 + w, n)
+        panel = torch.linalg.solve_triangular(
+            Lkk, A[rest, k0:k0 + w].to(acc).T, upper=False).T
+        A[rest, k0:k0 + w] = panel.to(A.dtype)
+        trail = A[rest, rest].to(acc) - panel @ panel.T
+        w1 = min(block, n - k0 - w)
+        D = trail[:w1, :w1]
+        low = torch.tril(torch.ones_like(trail, dtype=torch.bool))
+        A[rest, rest] = torch.where(low, trail.to(A.dtype), A[rest, rest])
+    return A, info
 
 
 def _factor_on_card(Ky: Tensor) -> tuple[Tensor, Tensor]:
-    global _SOLVER
-    if _SOLVER is None:
-        _SOLVER = _Solver(Ky.device)
-    index = Ky.device.index
-    if index is None:
-        index = torch.cuda.current_device()
-    n, dtype = Ky.shape[0], _DATA_TYPE[Ky.dtype]
-    handle, params = _SOLVER.handle(index)
-    dev_bytes, host_bytes, host = _SOLVER.workspace(index, Ky, dtype)
-    work = torch.empty(max(dev_bytes, 1), dtype=torch.uint8,
-                       device=Ky.device)
+    n = Ky.shape[0]
+    sym = "potrf_lower_f32" if Ky.dtype == torch.float32 \
+        else "potrf_lower_f64"
+    fn = _build.function("tri_matmul", sym, _ARGS)
+    size = _build.function("tri_matmul", "potrf_work_doubles",
+                           [ctypes.c_int])
+    work = torch.empty(size(n), dtype=torch.float64, device=Ky.device)
     info = torch.empty((), dtype=torch.int32, device=Ky.device)
-    stream = torch.cuda.current_stream(Ky.device).cuda_stream
-    _check(_SOLVER.SetStream(handle, stream), "cusolverDnSetStream")
-    _check(_SOLVER.Xpotrf(handle, params, _FILL_LOWER, n, dtype,
-                          Ky.data_ptr(), n, dtype, work.data_ptr(),
-                          dev_bytes, host, host_bytes, info.data_ptr()),
-           "cusolverDnXpotrf")
-    count("factor_in_place")
-    return Ky.mT, info
+    with torch.cuda.device(Ky.device):
+        rc = fn(_build.ptr(Ky), n, _build.ptr(work), _build.ptr(info),
+                _build.stream(Ky.device))
+    _build.check(rc, "potrf")
+    count("potrf")
+    return Ky, info
 
 
 def cholesky_in_place(Ky: Tensor) -> tuple[Tensor, Tensor]:
     """(L, info) for a symmetric positive definite Ky, as
     ``torch.linalg.cholesky_ex(Ky)`` gives them: info is 0 on success and
-    i > 0 where the leading minor of order i is not positive definite.
+    i > 0 where the leading minor of order i is not positive definite
+    (its pivot not positive or not finite).
 
     On a non-empty square contiguous CUDA matrix of float32 or float64 the
-    factor is written over Ky and L is the view ``Ky.mT``, column-major as
-    ``cholesky_ex``'s: its lower triangle holds the factor, its strict
-    upper triangle still holds Ky's entries (read neither Ky after the
-    call nor L above its diagonal), and info is a device int32 scalar.
-    Every other input takes ``torch.linalg.cholesky_ex`` and leaves Ky as
-    it was.
+    factor is written over Ky's lower triangle by the kernel and L is Ky
+    itself, row-major: its strict upper triangle still holds Ky's entries
+    (read L's lower triangle only), and info is a device int32 scalar,
+    with no host sync.  A failed factor may leave NaN below the failing
+    column.  Every other input takes ``torch.linalg.cholesky_ex`` and
+    leaves Ky as it was.
     """
     if (Ky.is_cuda and Ky.ndim == 2 and Ky.shape[0] == Ky.shape[1]
             and Ky.numel() > 0 and Ky.is_contiguous()
-            and Ky.dtype in _DATA_TYPE):
+            and Ky.dtype in (torch.float32, torch.float64)):
         return _factor_on_card(Ky)
     return torch.linalg.cholesky_ex(Ky)

@@ -25,8 +25,8 @@
   clock on the CPU, best of a few;
 * ``count`` and ``launch_counts``: the one registry of launch counts.
   The wrappers of the hand-written kernels call ``count`` after each
-  launch, and ``linalg/potrf.py`` after each factorization it writes over
-  its input; ``launch_counts`` reads (and optionally zeroes) them.
+  launch (``linalg/potrf.py`` once a factor, whose launches it issues
+  from C); ``launch_counts`` reads (and optionally zeroes) them.
 """
 
 from __future__ import annotations
@@ -46,17 +46,16 @@ def _sync(device: torch.device | str | None) -> None:
 
 
 # the hand-written kernels: the covariance build, the contraction, the
-# syrk, the triangular matmul, the fit step's alpha product, the rollout
-KERNELS = ("cov_fwd", "cov_bwd", "syrk", "trimm", "matvec", "rollout")
+# syrk, the triangular matmul, the fit step's alpha product, the fit
+# step's Cholesky written over Ky (one count a factor), the rollout
+KERNELS = ("cov_fwd", "cov_bwd", "syrk", "trimm", "matvec", "potrf",
+           "rollout")
 # launches of ``rollout`` that ran cluster teams, those that ran a Split
 # instance (``ops.cuda_step.split_instance``) and those in the mod_p / pdiff
 # mode (``ops.cuda_step.kernel_mode`` "implicit_wrap"): not kernels of
 # their own
 SUBCOUNTS = ("rollout_cluster", "rollout_split", "rollout_wrap")
-# calls into a library that are not hand-written kernels: cuSOLVER's
-# Cholesky written over its input (``linalg.potrf.cholesky_in_place``)
-LIBRARY = ("factor_in_place",)
-_COUNTS = dict.fromkeys(KERNELS + SUBCOUNTS + LIBRARY, 0)
+_COUNTS = dict.fromkeys(KERNELS + SUBCOUNTS, 0)
 
 _OFF = contextlib.nullcontext()
 _profiler_enabled = torch._C._autograd._profiler_enabled
@@ -108,15 +107,15 @@ def best_ms(fn: Callable[[], object], reps: int = 3, calls: int = 1,
 
 
 def count(key: str, n: int = 1) -> None:
-    """Add ``n`` launches to ``key``, one of ``KERNELS + SUBCOUNTS +
-    LIBRARY`` (an unknown key raises ``KeyError``)."""
+    """Add ``n`` launches to ``key``, one of ``KERNELS + SUBCOUNTS`` (an
+    unknown key raises ``KeyError``)."""
     _COUNTS[key] += n
 
 
 def launch_counts(zero: bool = False) -> dict[str, int]:
     """Launches of each hand-written kernel in this process
-    (``KERNELS``), then ``SUBCOUNTS``, then ``LIBRARY``.  ``zero=True``
-    sets them to 0 first."""
+    (``KERNELS``), then ``SUBCOUNTS``.  ``zero=True`` sets them to 0
+    first."""
     if zero:
         _COUNTS.update(dict.fromkeys(_COUNTS, 0))
     return dict(_COUNTS)

@@ -60,9 +60,9 @@ ADAM_LR = 3e-2
 ROLLOUT_B, ROLLOUT_NM, ROLLOUT_ITERS = 4096, 256, 5
 # the kernels each stage of ``measure`` launches on the card (its
 # ``launches``): the build, the contractions, the syrk, the triangular
-# matmul, the closed-form step's alpha product, the rollout; and the
-# closed-form step's factor written over Ky (``factor_in_place``)
-_STEP = {"cov_fwd", "cov_bwd", "syrk", "trimm", "matvec", "factor_in_place"}
+# matmul, the closed-form step's alpha product and its factor written
+# over Ky, the rollout
+_STEP = {"cov_fwd", "cov_bwd", "syrk", "trimm", "matvec", "potrf"}
 STAGE_KERNELS = {
     "build": {"cov_fwd"},
     "cholesky": set(),
@@ -78,11 +78,13 @@ STAGE_KERNELS = {
 SWEEP_SCAL = (0.6, 0.6, 0.6, 0.6, 1.0, 2 * np.pi)
 SWEEP_AUX = 64
 # the float32 gradients at N=4096 against float64 (relative L2): each path
-# alone, and the closed form against autodiff, which share the build, Ky
-# and the float32 Cholesky (H100: 1.3e-2 each, 1e-5 apart).  The shared
-# error is cuSOLVER's float32 Cholesky: its backward error is 3.3e-6
-# against LAPACK's 4.2e-7 on the same Ky, and with LAPACK's factor both
-# gradients lie 3.7e-4 from float64 (tools/large_n_grad_witness.py)
+# alone, and the closed form against autodiff on one factor, so that they
+# share the build, Ky and the float32 Cholesky.  The autodiff path factors
+# with cholesky_ex, cuSOLVER's float32 potrf (backward error 3.3e-6
+# against LAPACK's 4.2e-7 on the same Ky): 1.3e-2 from float64 on an H100,
+# as the closed form through that factor, the two 1e-5 apart; the closed
+# form through the step's own factor (linalg/potrf.py, float64 sums) lies
+# 3.4e-5 from float64 (tools/large_n_grad_witness.py)
 GRAD_RTOL = 5e-2
 GRAD_RTOL_PATHS = 1e-3
 
@@ -223,32 +225,51 @@ def nll_value_and_grad_autodiff(theta: Tensor, sig2n: Tensor, X: Tensor,
     return val.detach(), g
 
 
+@contextlib.contextmanager
+def _library_factor():
+    """The closed-form step with ``torch.linalg.cholesky_ex`` in place of
+    its own factor (the factor the autodiff path differentiates)."""
+    from sympgpr_tpu_torch.linalg import potrf
+
+    own = potrf.cholesky_in_place
+    potrf.cholesky_in_place = torch.linalg.cholesky_ex
+    try:
+        yield
+    finally:
+        potrf.cholesky_in_place = own
+
+
 def check_gradients(N: int, sig2n: float = 1e-2, *,
                     device: torch.device | str = "cuda") -> dict:
     """The float32 closed-form and autodiff gradients at the measured
     model's theta, each against the closed-form gradient of float64
-    copies of the same X and z, and against each other (relative L2 to
-    the float64 gradient's norm).  Passes when each lies within
-    ``GRAD_RTOL`` of float64 and the two within ``GRAD_RTOL_PATHS`` of
-    each other."""
+    copies of the same X and z, and the two paths against each other on
+    one factor: the closed form through ``cholesky_ex``, the factor the
+    autodiff path differentiates (relative L2 to the float64 gradient's
+    norm).  Passes when each lies within ``GRAD_RTOL`` of float64 and the
+    two within ``GRAD_RTOL_PATHS`` of each other."""
     from sympgpr_tpu_torch.gp.likelihood import nll_value_and_grad_theta
 
     X, z = synthetic_training_set(N, torch.float32, device=device)
     th = theta0(torch.float32, device)
     s2n = torch.tensor(sig2n, dtype=torch.float32, device=device)
     _, g_cf = nll_value_and_grad_theta(PER_SE, th, s2n, X, z)
+    with _library_factor():
+        _, g_lib = nll_value_and_grad_theta(PER_SE, th, s2n, X, z)
     _, g_ad = nll_value_and_grad_autodiff(th, s2n, X, z)
     _, g64 = nll_value_and_grad_theta(PER_SE, th.double(), s2n.double(),
                                       X.double(), z.double())
-    g_cf, g_ad, g64 = (g.double().cpu() for g in (g_cf, g_ad, g64))
+    g_cf, g_lib, g_ad, g64 = (g.double().cpu()
+                              for g in (g_cf, g_lib, g_ad, g64))
 
     def rel(g, ref):
         return float((g - ref).norm() / g64.norm())
 
-    e_cf, e_ad, e_paths = rel(g_cf, g64), rel(g_ad, g64), rel(g_cf, g_ad)
+    e_cf, e_ad, e_paths = rel(g_cf, g64), rel(g_ad, g64), rel(g_lib, g_ad)
     return {"N": N, "sig2n": sig2n, "device": str(X.device),
             "grad_f64": g64.tolist(), "grad_closed_form": g_cf.tolist(),
             "grad_autodiff": g_ad.tolist(), "err_closed_form": e_cf,
+            "err_closed_form_cholesky_ex": rel(g_lib, g64),
             "err_autodiff": e_ad, "err_between_paths": e_paths,
             "tol": GRAD_RTOL, "tol_between_paths": GRAD_RTOL_PATHS,
             "ok": (e_cf <= GRAD_RTOL and e_ad <= GRAD_RTOL

@@ -3,10 +3,10 @@ PyTorch versions, on the card: covariance build and contraction
 (``ops/cuda_cov.py``, with the fit's fused entries ``build_Ky`` and
 ``cov_param_grads_sym``), triangular matmul (``ops/cuda_trimm.py``), syrk
 (``ops/cuda_syrk.py``), the alpha product (``ops/cuda_matvec.py``) and the
-fit step's alpha and value from it, the Cholesky written over Ky
-(``linalg/potrf.py``) against ``cholesky_ex``'s, the jitter escalation of
-the fit through them, and a fit step that never makes the host wait for
-the card.
+fit step's alpha and value from it, the blocked Cholesky written over Ky
+(``linalg/potrf.py``) against its plain version and ``cholesky_ex``'s, the
+jitter escalation of the fit through them, and a fit step that never makes
+the host wait for the card.
 
 Needs a CUDA device and nvcc; skips otherwise.  Needs no JAX:
 
@@ -40,7 +40,7 @@ from sympgpr_tpu_torch.gp.likelihood import (  # noqa: E402
     nll_value_and_grad, nll_value_and_grad_theta)
 from sympgpr_tpu_torch.gp import train  # noqa: E402
 from sympgpr_tpu_torch.kernels import variants as kv  # noqa: E402
-from sympgpr_tpu_torch.linalg import triangular  # noqa: E402
+from sympgpr_tpu_torch.linalg import potrf, triangular  # noqa: E402
 from sympgpr_tpu_torch.linalg.potrf import cholesky_in_place  # noqa: E402
 from sympgpr_tpu_torch.linalg.triangular import (  # noqa: E402
     spd_inverse_from_chol, tri_inv_blocked)
@@ -431,19 +431,19 @@ def _spd(n, dt, device):
 @pytest.mark.parametrize("n", [48, 1000, 8192])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_factor_in_place_matches_cholesky_ex(cuda, dtype, n):
-    """The factor lands in Ky's own buffer, L = Ky.mT (the layout of
-    ``cholesky_ex``'s L), its lower triangle within 1e-6 (float32) or
-    1e-14 (float64) of ``cholesky_ex``'s over the factor's largest entry,
-    its strict upper triangle Ky's entries untouched, counted once."""
+    """The factor lands in Ky's own buffer, L = Ky row-major, its lower
+    triangle within 1e-6 (float32) or 1e-14 (float64) of ``cholesky_ex``'s
+    over the factor's largest entry, its strict upper triangle Ky's entries
+    untouched, counted once."""
     dt = DTYPES[dtype]
     Ky = _spd(n, dt, cuda)
     L_ref, info_ref = torch.linalg.cholesky_ex(Ky)
     buf = Ky.clone()
-    before = launch_counts()["factor_in_place"]
+    before = launch_counts()["potrf"]
     L, info = cholesky_in_place(buf)
     torch.cuda.synchronize()
-    assert launch_counts()["factor_in_place"] == before + 1
-    assert L.data_ptr() == buf.data_ptr() and L.stride() == (1, n)
+    assert launch_counts()["potrf"] == before + 1
+    assert L.data_ptr() == buf.data_ptr() and L.stride() == (n, 1)
     assert int(info) == int(info_ref) == 0
     low = torch.tril(L)
     gap = float((low - L_ref).abs().max() / L_ref.abs().max())
@@ -451,6 +451,62 @@ def test_factor_in_place_matches_cholesky_ex(cuda, dtype, n):
     assert gap <= tol, (f"largest gap {gap:.3e} over max|L|, bits equal: "
                         f"{torch.equal(low, L_ref)}")
     assert torch.equal(torch.triu(L, 1), torch.triu(Ky, 1))
+
+
+def _backward_error(L, K):
+    L = torch.tril(L).double()
+    return float(torch.linalg.norm(L @ L.T - K.double())
+                 / torch.linalg.norm(K.double()))
+
+
+# 1001: the last block column 105 wide, rows off the 16-byte vector (the
+# element-wise copies of the update)
+@pytest.mark.parametrize("n", [48, 1000, 1001, 8192])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_factor_matches_plain(cuda, dtype, n):
+    """The kernel against its plain version (the same blocks, float64
+    sums in another order) on the card: float32 within 1e-6 of the largest
+    entry (a few float32 roundings of the stored blocks apart), float64
+    within 1e-14; the backward error ||L L^T - Ky|| / ||Ky|| within 2x of
+    the plain version's; the same bits from a second call; garbage above
+    the diagonal neither read into L nor overwritten."""
+    dt = DTYPES[dtype]
+    Ky = _spd(n, dt, cuda)
+    up = torch.triu(torch.ones(n, n, dtype=torch.bool, device=cuda), 1)
+    dirty = torch.where(up, torch.tensor(float("nan"), dtype=dt,
+                                         device=cuda), Ky)
+    L, info = cholesky_in_place(dirty.clone())
+    L2, info2 = cholesky_in_place(dirty.clone())
+    P, info_p = potrf.potrf_lower_reference(Ky.clone())
+    assert int(info) == int(info2) == info_p == 0
+    assert torch.equal(torch.tril(L), torch.tril(L2))
+    assert bool(torch.isnan(L[up]).all())
+    low, low_p = torch.tril(L), torch.tril(P)
+    gap = float((low - low_p).abs().max() / low_p.abs().max())
+    assert gap <= (1e-6 if dt == torch.float32 else 1e-14), gap
+    err, err_p = _backward_error(low, Ky), _backward_error(low_p, Ky)
+    assert err <= 2 * err_p, (err, err_p)
+
+
+@pytest.mark.parametrize("where", ["diagonal", "lower", "upper"])
+def test_factor_nan_in_ky(cuda, where):
+    """NaN on or below Ky's diagonal reports a failing minor at or before
+    its row and returns (no hang); NaN above it is never read: info 0 and
+    the factor of the clean Ky to the bit."""
+    n = 700
+    Ky = _spd(n, torch.float32, cuda)
+    L_clean, _ = cholesky_in_place(Ky.clone())
+    i, j = {"diagonal": (300, 300), "lower": (450, 20),
+            "upper": (20, 450)}[where]
+    bad = Ky.clone()
+    bad[i, j] = float("nan")
+    L, info = cholesky_in_place(bad)
+    torch.cuda.synchronize()
+    if where == "upper":
+        assert int(info) == 0
+        assert torch.equal(torch.tril(L), torch.tril(L_clean))
+    else:
+        assert 0 < int(info) <= i + 1, int(info)
 
 
 def test_factor_in_place_indefinite(cuda, monkeypatch):
@@ -468,11 +524,11 @@ def test_factor_in_place_indefinite(cuda, monkeypatch):
     z = torch.tensor(np.random.default_rng(2).normal(size=64) * 0.1,
                      dtype=torch.float32, device=cuda)
     params = torch.tensor(PARAMS["per_se"], device=cuda)
-    before = launch_counts()["factor_in_place"]
+    before = launch_counts()["potrf"]
     val, dparams, dsig = nll_value_and_grad(
         kv.PER_SE, params, torch.tensor(2.5, device=cuda),
         torch.tensor(1e-2, device=cuda), X, z)
-    assert launch_counts()["factor_in_place"] == before + 1
+    assert launch_counts()["potrf"] == before + 1
     assert torch.isnan(val) and torch.isnan(dparams).all() \
         and torch.isnan(dsig)
 
@@ -490,13 +546,13 @@ def test_factor_in_place_once_a_step(cuda, monkeypatch):
     theta, hist = train._adam(kv.PER_SE, X, z, theta0, s2n, 7, 5e-2)
     torch.cuda.synchronize()
     after = launch_counts()
-    assert after["factor_in_place"] == before["factor_in_place"] + 7
+    assert after["potrf"] == before["potrf"] + 7
     assert after["cov_bwd"] == before["cov_bwd"] + 7
     assert torch.isfinite(hist).all()
-    before = after["factor_in_place"]
+    before = after["potrf"]
     tim = fit_sympgp_large(X, z, sig2n=1e-2, theta0=(0.5, 2.5, 2.0),
                            steps=3, lr=5e-2)[3]
-    assert launch_counts()["factor_in_place"] == before + 3 * (
+    assert launch_counts()["potrf"] == before + 3 * (
         1 + tim["jitter_escalations"])
 
 

@@ -95,8 +95,7 @@ def test_best_ms_on_the_host_clock():
     assert len(calls) == 2
 
 
-@pytest.mark.parametrize("key", profiling.KERNELS + profiling.SUBCOUNTS
-                         + profiling.LIBRARY)
+@pytest.mark.parametrize("key", profiling.KERNELS + profiling.SUBCOUNTS)
 def test_launch_counts_read_and_zero(key):
     """Each key of the registry counts, reads back and zeroes; the ten
     keys keep their order; an unknown key raises."""
@@ -105,8 +104,8 @@ def test_launch_counts_read_and_zero(key):
     counts = profiling.launch_counts(zero=True)
     assert list(counts.items()) == [
         (k, 0) for k in ("cov_fwd", "cov_bwd", "syrk", "trimm", "matvec",
-                         "rollout", "rollout_cluster", "rollout_split",
-                         "rollout_wrap", "factor_in_place")]
+                         "potrf", "rollout", "rollout_cluster",
+                         "rollout_split", "rollout_wrap")]
     profiling.count(key)
     assert profiling.launch_counts() == dict(counts, **{key: 1})
     with pytest.raises(KeyError):

@@ -3,7 +3,7 @@
 and the alpha product ``ops/cuda_matvec.py``, which JAX lacks, against
 ``torch.cholesky_solve``.  The blocked inverse ignores its factor's upper
 triangle, and ``linalg/potrf.py``'s factor is ``cholesky_ex``'s off the
-card.
+card (its plain blocked version: ``tests/test_torch_potrf.py``).
 
 JAX runs its Pallas kernels in interpret mode on the CPU with the calls of
 ``tests/test_fast_grad.py`` (tile 128, ``precision="highest"``); the port
@@ -252,8 +252,8 @@ def test_spd_inverse_from_chol_default_base():
 
 
 # n = 1024 is taken as it is; n = 700 is padded to 1024 by ``_pad_tri``'s
-# identity tail.  Row-major L as a factor written over Ky in place would
-# be, column-major as ``cholesky_ex`` and ``linalg/potrf.py`` return it.
+# identity tail.  Row-major L as ``linalg/potrf.py`` writes it over Ky,
+# column-major as ``cholesky_ex`` returns it.
 @pytest.mark.parametrize("layout", ["row", "col"])
 @pytest.mark.parametrize("fill", ["large", "nan"])
 @pytest.mark.parametrize("n", [1024, 700])
@@ -286,7 +286,7 @@ def test_cholesky_in_place_on_cpu_is_cholesky_ex():
     rng = np.random.default_rng(3)
     A = rng.standard_normal((40, 40))
     Ky = tt(A @ A.T + 40 * np.eye(40))
-    before = launch_counts()["factor_in_place"]
+    before = launch_counts()["potrf"]
     L, info = potrf.cholesky_in_place(Ky.clone())
     L_ref, info_ref = torch.linalg.cholesky_ex(Ky)
     assert torch.equal(L, L_ref) and int(info) == int(info_ref) == 0
@@ -294,7 +294,7 @@ def test_cholesky_in_place_on_cpu_is_cholesky_ex():
     kept = Ky.clone()
     assert int(potrf.cholesky_in_place(Ky)[1]) == 21
     assert torch.equal(Ky, kept)
-    assert launch_counts()["factor_in_place"] == before
+    assert launch_counts()["potrf"] == before
 
 
 def test_wrappers_refuse_other_devices():

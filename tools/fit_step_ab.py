@@ -41,7 +41,12 @@ back (``*_b2b_ms``) and by the profiler's device time of their kernels
 (``*_kernel_ms``).
 
 Where the checkout factors Ky in place (``linalg/potrf.py``), its step
-runs that factor (``cholesky_in_place``) and ``potrf_modes`` times
+runs that factor (``cholesky_in_place``), and ``factor`` times it alone
+in float32 and on a float64 copy of Ky, each call on a fresh copy
+restored outside the CUDA events, beside ``cholesky_ex`` in each dtype,
+with each factor's backward error ||L L^T - Ky|| / ||Ky|| (float64
+products) and LAPACK's float32 one on the host.  Where that factor is
+cuSOLVER's (the checkout has ``potrf._SOLVER``), ``potrf_modes`` times
 cuSOLVER's potrf alone at n in three layouts, each call on a fresh copy
 of Ky restored outside the CUDA events: the upper fill mode in place on
 the row-major Ky (``upper_in_place``: the factor lands row-major), the
@@ -311,6 +316,66 @@ def _potrf_modes(potrf, Ky, reps: int) -> dict:
     return out
 
 
+def _backward_error(L, A) -> float:
+    """||tril(L) tril(L)^T - A|| / ||A|| with float64 products."""
+    L = L.tril().double()
+    return float((L @ L.T - A.double()).norm() / A.double().norm())
+
+
+def _by_kernel(fn, calls: int) -> dict:
+    """ms a call of each kernel under ``fn`` by ``torch.profiler``'s
+    device time over ``calls`` calls, with its launches a call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0) or getattr(
+            e, "cuda_time_total", 0)
+        if us:
+            out[e.key[:80]] = [round(us / calls / 1e3, 4), e.count / calls]
+    return out
+
+
+def _factor(potrf, Ky, reps: int) -> dict:
+    """The checkout's ``cholesky_in_place`` alone in float32 and float64,
+    beside ``cholesky_ex`` (see the module doc)."""
+    import torch
+
+    out = {}
+    for name, A in (("f32", Ky), ("f64", Ky.double())):
+        buf, ts = torch.empty_like(A), []
+        for _ in range(reps + 1):  # the first is the warm-up
+            buf.copy_(A)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            L, info = potrf.cholesky_in_place(buf)
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b))
+        out[name + "_ms"] = (min(ts[1:]), statistics.median(ts[1:]))
+        out[name + "_info"] = int(info)
+        out[name + "_by_kernel_ms"] = _by_kernel(
+            lambda: (buf.copy_(A), potrf.cholesky_in_place(buf)), 3)
+        out[name + "_backward_error"] = _backward_error(L, A)
+        out["cholesky_ex_" + name + "_ms"] = _time(
+            lambda: torch.linalg.cholesky_ex(A), reps)
+        out["cholesky_ex_" + name + "_backward_error"] = _backward_error(
+            torch.linalg.cholesky_ex(A)[0], A)
+        del buf, L
+    host = Ky.cpu()
+    out["lapack_f32_backward_error"] = _backward_error(
+        torch.linalg.cholesky_ex(host)[0], host)
+    return out
+
+
 def _host_s(fn) -> float:
     import torch
 
@@ -440,9 +505,11 @@ def run_one(tree: str, reps: int) -> None:
     for name, fn in timed.items():
         row[name + "_ms"], row[name + "_median_ms"] = _time(fn, reps)
     if potrf is not None:
-        row["potrf_modes"] = _potrf_modes(potrf, Ky, reps)
+        row["factor"] = _factor(potrf, Ky, reps)
         (row["cholesky_in_place_ms"], row["cholesky_in_place_median_ms"]) \
-            = row["potrf_modes"]["lower_in_place_ms"]
+            = row["factor"]["f32_ms"]
+    if hasattr(potrf, "_SOLVER"):
+        row["potrf_modes"] = _potrf_modes(potrf, Ky, reps)
     row["step_path"] = list(parts)
     row["unexplained_ms"] = row["fit_step_ms"] - sum(
         row[k + "_ms"] for k in parts)

@@ -15,16 +15,18 @@ the path for another implementation, to find the stage that sets the
 error: ``kernels`` (the path as it runs), ``plain_build`` (the build's
 plain version on the card's tensors in place of the build kernel; the
 contraction kernels stay) and ``cpu_cholesky`` (the float32 Cholesky
-factorizations by LAPACK on the host in place of cuSOLVER: the closed-form
-step's factor written back into Ky's buffer as
-``linalg/potrf.py::cholesky_in_place`` leaves it, the autodiff path's
-``torch.linalg.cholesky_ex``).  An error
+factorizations by LAPACK on the host in place of the card's: the
+closed-form step's factor written back over Ky's lower triangle as
+``linalg/potrf.py::cholesky_in_place``'s kernel leaves it, the autodiff
+path's ``torch.linalg.cholesky_ex``, cuSOLVER's).  An error
 that grows as sig2n shrinks (K's condition number grows as 1 / sig2n) is
 rounding amplified by the conditioning.  ``--build-error`` adds one line
 per sig2n with the float32 Ky of the build kernel and of the plain
 version against the float64 plain Ky (relative Frobenius norm, largest
 entry difference over the largest entry) and each float32 Cholesky's
-backward error ||L L^T - Ky|| / ||Ky||.  One JSON line per result, with
+backward error ||L L^T - Ky|| / ||Ky||: ``cholesky_ex`` on the card
+(cuSOLVER) and on the host (LAPACK), and the fit step's
+``cholesky_in_place`` (``chol_in_place_...``).  One JSON line per result, with
 its seconds; ``--out`` appends them to a file too.
 """
 
@@ -58,13 +60,14 @@ def _cholesky_on_host(A, *args, **kw):
 
 def _cholesky_in_place_on_host(Ky):
     """``potrf.cholesky_in_place`` of a float32 card tensor by LAPACK on
-    the host: the factor written back into Ky's buffer, returned as the
-    view ``Ky.mT`` whose lower triangle is L, as the card's leaves it."""
+    the host: the factor written back over Ky's lower triangle, Ky
+    returned, as the card's kernel leaves it."""
     if Ky.dtype != torch.float32 or Ky.device.type == "cpu":
         return _CHOLESKY_IN_PLACE(Ky)
     L, info = _CHOLESKY_EX(Ky.cpu())
-    Ky.mT.copy_(L)
-    return Ky.mT, info.to(Ky.device)
+    low = torch.tril(torch.ones_like(Ky, dtype=torch.bool))
+    Ky.copy_(torch.where(low, L.to(Ky.device), Ky))
+    return Ky, info.to(Ky.device)
 
 
 _CHOLESKY_EX = torch.linalg.cholesky_ex
@@ -112,7 +115,12 @@ def build_error(N: int, sig2n: float, device) -> dict:
                 / A.double().norm()
             out[f"chol_{where}_of_Ky_{name}_backward_err"] = float(r)
             out[f"chol_{where}_of_Ky_{name}_info"] = int(info)
-        del Ky, d
+        L, info = _CHOLESKY_IN_PLACE(Ky.clone())
+        L = torch.tril(L).double()
+        out[f"chol_in_place_of_Ky_{name}_backward_err"] = float(
+            (L @ L.T - Ky.double()).norm() / Ky.double().norm())
+        out[f"chol_in_place_of_Ky_{name}_info"] = int(info)
+        del Ky, d, L
     return out
 
 
